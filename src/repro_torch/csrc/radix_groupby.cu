@@ -1,0 +1,23 @@
+// Radix-partitioned grouped aggregation: float32 sums + counts (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/radix_groupby/kernel.py:
+// _radix_groupby_kernel / radix_groupby_pallas, which swept every row tile
+// once per 256-id partition and reduced each tile with a one-hot matmul
+// carrying a [256, C+1] accumulator (the appended ones column yields the
+// counts).  Here the rows are moved into partition order once and each
+// partition's rows are reduced in a fixed order: see grouped_sum.cuh for
+// the passes, the bound (bytes) and the determinism argument.
+#include "grouped_sum.cuh"
+
+extern "C" int repro_radix_groupby(const void* ids, const void* values,
+                                   int64_t n, int C, int n_groups,
+                                   int64_t rows_per_block, int n_slices,
+                                   void* iws, void* fws, void* sums,
+                                   void* counts, void* stream) {
+  return (int)grouped_sum_launch(
+      static_cast<const int32_t*>(ids), static_cast<const float*>(values), n,
+      C, n_groups, /*with_counts=*/1, rows_per_block, n_slices,
+      static_cast<int32_t*>(iws), static_cast<float*>(fws),
+      static_cast<float*>(sums), static_cast<float*>(counts),
+      static_cast<cudaStream_t>(stream));
+}

@@ -1,0 +1,23 @@
+// Grouped float32 sums over segment ids (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/segment_sum/kernel.py:
+// _segment_sum_kernel / segment_sum_pallas, which reduced each row tile
+// with a one-hot [rows, n_groups] matmul into a VMEM accumulator carried
+// across a sequential grid.  Here the same deterministic partitioned
+// reduction as the radix groupby runs without the counts column: see
+// grouped_sum.cuh for the passes, the bound (bytes) and the determinism
+// argument.  For the global aggregate (n_groups = 1) every row falls in
+// partition 0 and the sum is cut into slices summed in slice order.
+#include "grouped_sum.cuh"
+
+extern "C" int repro_segment_sum(const void* seg_ids, const void* values,
+                                 int64_t n, int C, int n_groups,
+                                 int64_t rows_per_block, int n_slices,
+                                 void* iws, void* fws, void* out,
+                                 void* stream) {
+  return (int)grouped_sum_launch(
+      static_cast<const int32_t*>(seg_ids), static_cast<const float*>(values),
+      n, C, n_groups, /*with_counts=*/0, rows_per_block, n_slices,
+      static_cast<int32_t*>(iws), static_cast<float*>(fws),
+      static_cast<float*>(out), nullptr, static_cast<cudaStream_t>(stream));
+}
