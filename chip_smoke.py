@@ -1,24 +1,37 @@
 """Drive the PyTorch/CUDA port (``repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases
-    python3 chip_smoke.py --profile       # all phases + a profiled Q4.1 run
+    python3 chip_smoke.py --profile       # all phases + profiled Q4.1 run,
+                                          # LM prefill and decode step
 
 Phases (any failure raises and the script exits non-zero):
 
 1. Setup: torch/CUDA versions, the card's name and power limit, and the
    build of every ``src/repro_torch/csrc/*.cu`` kernel (timed).
 2. Kernels: each hand-written kernel against its plain torch version on the
-   card, at the shapes SSB scale factor 1 gives it, twice (bit-identical),
-   with its median time (CUDA events), its bound, the plain version's time
-   and a PyTorch library call as a yardstick the port never calls.
-3. Main path: SSB scale factor 1 (seed 42) through the port's engines on
+   card, at the shapes its main path gives it (SSB scale factor 1 for the
+   ETL kernels; stablelm-3b and falcon-mamba-7b prefill for flash attention
+   and the selective scan) plus small cases for the options those paths do
+   not use, twice (bit-identical), with its median time (CUDA events), its
+   bound, the plain version's time and a PyTorch library call as a
+   yardstick the port never calls.
+3. ETL main path: SSB scale factor 1 (seed 42) through the port's engines on
    backend ``torch`` with segment fusion: Q4.1 on OptimizedEngine and
    StreamingEngine, Q1.1 on OptimizedEngine.  Each run is checked against
    the query's float64 oracle and repeated (the second run must be
-   byte-identical).  The launch counters are set to 0 just before the main
-   path's first run and read after its last; each run's own launches must
-   show that it went through the kernels.
-4. The ``kernels`` JSON line, the card line and, last,
+   byte-identical).  The launch counters are set to 0 just before the
+   path's first run and read after its last.
+4. LM serving path, once for stablelm-3b and once for falcon-mamba-7b at
+   their full published widths (``configs/<arch>.CONFIG``, random weights
+   from a seed): ``BatchedServer`` serves 8 requests (waves of 4, prompts of
+   2048 tokens from numpy seed 0, 32 new tokens, greedy) twice, with the
+   counters set to 0 just before and read just after.  Each prefill must
+   launch its kernel once per layer and the second run must give the same
+   tokens.  Against the fp32 plain route's prefill logits, the fp32 kernel
+   route must agree within F32_LOGITS_ATOL and the bf16 kernel route must
+   be no further off than the bf16 plain route allows (BF16_MARGIN); in
+   fp32, prefill + 4 decode steps must agree with a longer prefill.
+5. The ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; exits non-zero without one, and without the repository's
@@ -45,6 +58,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # tensor cores, which bounds the integer/float work these kernels do
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+#: dense bf16 tensor-core peak: the least time for attention's products
+PEAK_BF16_S = 989e12
 
 SF1 = dict(lineorder_rows=6_000_000, customers=30_000, suppliers=2_000,
            parts=200_000, seed=42)
@@ -88,9 +103,9 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -314,7 +329,159 @@ def phase_segment_sum(rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
-#  Phase 3: main path
+#  Phase 2, LM kernels
+# ---------------------------------------------------------------------------
+#: bf16 flash attention against the plain version: both round the output to
+#: bf16 (relative step 2^-8) and the probabilities to bf16 before the value
+#: product, at other points of the softmax (the CPU tests' bf16 tolerance)
+FLASH_TOL_BF16 = (2e-2, 2e-2)
+#: fp32 flash attention: fp32 sums in other orders (the CPU tests' tolerance)
+FLASH_TOL_F32 = (2e-4, 2e-5)
+#: the fp32 scan: fused multiply-adds and the N-state sum in another order;
+#: the state is a contraction, so the gaps do not grow with T
+SCAN_TOL = (1e-4, 1e-4)
+
+
+def allowed_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask allows: the data-dependent part of the work."""
+    q = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(Skv - 1, q) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(Sq,
+                                                                  np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _check_close(label, got, want, tol) -> float:
+    rtol, atol = tol
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"{label}: max_abs_err {err:.3g} beyond rtol "
+                             f"{rtol} atol {atol} of the plain version")
+    return err
+
+
+def _flash_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window, softcap,
+                dtype, library: bool) -> dict:
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+    q, k, v = rand(B, Sq, Kh, G, hd), rand(B, Skv, Kh, hd), rand(B, Skv, Kh,
+                                                                 hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    a = flash_attention(q, k, v, impl="cuda", **kw)
+    b = flash_attention(q, k, v, impl="cuda", **kw)
+    r = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not same(a, b):
+        raise AssertionError(f"flash_attention[{label}]: two launches differ")
+    tol = FLASH_TOL_BF16 if dtype == torch.bfloat16 else FLASH_TOL_F32
+    err = _check_close(f"flash_attention[{label}]", a, r, tol)
+    ms = time_ms(lambda: flash_attention(q, k, v, impl="cuda", **kw))
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), iters=5)
+    library_ms = None
+    if library:
+        import torch.nn.functional as F
+        qt = q.reshape(B, Sq, Kh * G, hd).transpose(1, 2).contiguous()
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=G > 1))
+    pairs = allowed_pairs(Sq, Skv, causal, window)
+    flops = 4 * B * Kh * G * hd * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bnd, by = bound_ms(nbytes, flops, PEAK_BF16_S)
+    lib = f"{library_ms:.4f}" if library_ms is not None else "none"
+    log(f"  flash_attention[{label}]: B={B} Sq={Sq} Skv={Skv} Kh={Kh} G={G} "
+        f"hd={hd} causal={causal} window={window} softcap={softcap} "
+        f"{str(dtype).split('.')[-1]} pairs={pairs} max_abs_err={err:.3g} "
+        f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
+        f"bound_ms={bnd:.4f} ({by}) tflops={flops / ms / 1e9:.2f} "
+        f"bit_stable=True")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bnd, bound_by=by, max_abs_err=err)
+
+
+def phase_flash_attention(gen) -> dict:
+    bf16, f32 = torch.bfloat16, torch.float32
+    # stablelm-3b prefill: 4 prompts of 2048 tokens, 32 heads (MHA), hd 80
+    main = _flash_case("stablelm-3b prefill", gen, 4, 2048, 2048, 32, 1, 80,
+                       True, 0, 0.0, bf16, library=True)
+    # the options that path does not use: GQA, window, softcap, ragged
+    # lengths, Sq != Skv, rows with no allowed key, other head dims
+    for args in (("gqa+window+softcap", 2, 300, 300, 2, 4, 128, True, 100,
+                  30.0, bf16),
+                 ("cross ragged hd256", 1, 77, 213, 1, 2, 256, False, 0, 0.0,
+                  bf16),
+                 ("masked rows fp32", 1, 100, 20, 1, 2, 16, False, 10, 0.0,
+                  f32),
+                 ("smoke hd16 fp32", 2, 40, 40, 4, 1, 16, True, 0, 0.0,
+                  f32)):
+        _flash_case(*args[:1], gen, *args[1:], library=False)
+    return main
+
+
+def _scan_inputs(gen, Bt, T, d, N, zero_h0):
+    dev = gen.device
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    delta = torch.rand((Bt, T, d), generator=gen, device=dev) * 0.99 + 0.01
+    A = -rand(d, N).abs() - 0.05
+    h0 = (torch.zeros((Bt, d, N), device=dev) if zero_h0
+          else rand(Bt, d, N))
+    return delta, rand(Bt, T, d), rand(Bt, T, N), rand(Bt, T, N), A, h0
+
+
+def _scan_case(label, gen, Bt, T, d, N, zero_h0=False) -> dict:
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+    args = _scan_inputs(gen, Bt, T, d, N, zero_h0)
+    y, hT = mamba_scan(*args, impl="cuda")
+    y2, hT2 = mamba_scan(*args, impl="cuda")
+    y_r, hT_r = mamba_scan_ref(*args)
+    torch.cuda.synchronize()
+    if not (same(y, y2) and same(hT, hT2)):
+        raise AssertionError(f"mamba_scan[{label}]: two launches differ")
+    err = max(_check_close(f"mamba_scan[{label}] y", y, y_r, SCAN_TOL),
+              _check_close(f"mamba_scan[{label}] hT", hT, hT_r, SCAN_TOL))
+    ms = time_ms(lambda: mamba_scan(*args, impl="cuda"))
+    plain_ms = time_ms(lambda: mamba_scan_ref(*args), iters=3, warmup=1)
+    nbytes = 4 * (sum(t.numel() for t in args) + y.numel() + hT.numel())
+    bnd, by = bound_ms(nbytes, 0.0)
+    log(f"  mamba_scan[{label}]: Bt={Bt} T={T} d={d} N={N} "
+        f"max_abs_err={err:.3g} tol={SCAN_TOL} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms=none bound_ms={bnd:.4f} ({by}) "
+        f"GB/s={nbytes / ms / 1e6:.1f} bit_stable=True")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
+                bound_by=by, max_abs_err=err)
+
+
+def phase_mamba_scan(gen) -> dict:
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    # falcon-mamba-7b prefill: 4 prompts of 2048 tokens, d_inner 8192, N 16
+    main = _scan_case("falcon-mamba-7b prefill", gen, 4, 2048, 8192, 16,
+                      zero_h0=True)
+    _scan_case("ragged T/d", gen, 3, 333, 1000, 16)
+    _scan_case("smoke N=8", gen, 2, 100, 130, 8)
+    # continuation: [0, T1) then [T1, T) from its hT is the full scan
+    dl, x, Bm, Cm, A, h0 = _scan_inputs(gen, 2, 512, 1024, 16, True)
+    y, hT = mamba_scan(dl, x, Bm, Cm, A, h0, impl="cuda")
+    halves = (slice(0, 200), slice(200, 512))
+    y1, h1 = mamba_scan(*(t[:, halves[0]].contiguous() for t in
+                          (dl, x, Bm, Cm)), A, h0, impl="cuda")
+    y2, h2 = mamba_scan(*(t[:, halves[1]].contiguous() for t in
+                          (dl, x, Bm, Cm)), A, h1, impl="cuda")
+    if not (same(torch.cat([y1, y2], 1), y) and same(h2, hT)):
+        raise AssertionError("mamba_scan: the two halves differ from the "
+                             "full scan")
+    log("  mamba_scan[continuation]: Bt=2 T=200+312 d=1024 N=16 "
+        "bit-identical to the full scan")
+    return main
+
+
+# ---------------------------------------------------------------------------
+#  Phase 3: ETL main path
 # ---------------------------------------------------------------------------
 def check_oracle(got: dict, expect: dict, rtol: float, label: str) -> None:
     for k, want in expect.items():
@@ -390,28 +557,25 @@ def run_main(data, expect: dict) -> dict:
     return launch_counts()
 
 
-def profile_q41(data) -> None:
-    """One more fused Q4.1 run on OptimizedEngine under ``torch.profiler``:
-    the device's busy time by kernel and its idle share of the run's wall
-    time (the profiler's own overhead inflates the wall)."""
+def profile_device(label: str, fn) -> None:
+    """Run ``fn`` once under ``torch.profiler``: the device's busy time by
+    kernel and its idle share of the wall time (the profiler's own overhead
+    inflates the wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import OptimizedEngine, OptimizeOptions
-    from repro_torch.etl.queries import build_q4
-    q = build_q4(data)
-    opts = OptimizeOptions(backend="torch", fuse_segments=True, num_splits=8)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        OptimizedEngine(q.flow, opts).run()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
-        log("  profile: no device events recorded (device time not measured)")
+        log(f"  profile {label}: no device events recorded (device time not "
+            f"measured)")
         return
     busy_us, reach = 0.0, float("-inf")      # union of the device intervals
     by_name: dict = {}
@@ -421,27 +585,199 @@ def profile_q41(data) -> None:
         tot, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + end - start, cnt + 1)
     busy = busy_us / 1e6
-    log(f"  profile Q4.1/optimized: wall={wall:.4f}s device_busy={busy:.4f}s "
+    log(f"  profile {label}: wall={wall:.4f}s device_busy={busy:.4f}s "
         f"idle_share={1.0 - busy / wall:.4f} device_events={len(spans)}")
     for name, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                   )[:12]:
         log(f"    {us / 1e3:10.3f} ms  x{cnt:<5d} {name[:100]}")
 
 
+def profile_q41(data) -> None:
+    """One more fused Q4.1 run on OptimizedEngine under the profiler."""
+    from repro_torch.core import OptimizedEngine, OptimizeOptions
+    from repro_torch.etl.queries import build_q4
+    q = build_q4(data)
+    opts = OptimizeOptions(backend="torch", fuse_segments=True, num_splits=8)
+    profile_device("Q4.1/optimized",
+                   lambda: OptimizedEngine(q.flow, opts).run())
+
+
+# ---------------------------------------------------------------------------
+#  Phase 4: LM serving path
+# ---------------------------------------------------------------------------
+#: fp32 logits of the kernel and plain routes: fp32 sums taken in other
+#: orders, grown through up to 64 layers of a random network
+F32_LOGITS_ATOL = 1e-2
+#: the reference's own teacher-forcing tolerance (tests/test_models.py)
+TF_TOL = (0.05, 0.05)
+#: bf16 logits: the kernel route may stand no further from the fp32 plain
+#: route than twice the bf16 plain route does, plus this margin.  Each
+#: route rounds to bf16 at other points, and a random 32-layer network
+#: grows those differences, so a fixed bf16 tolerance would measure the
+#: network, not the kernel
+BF16_MARGIN = 1e-2
+SERVE = dict(requests=8, batch=4, prompt_len=2048, max_new=32)
+
+
+def _gap(got: torch.Tensor, want: torch.Tensor):
+    """Largest absolute difference and the share of rows with the same
+    argmax; raises on non-finite logits."""
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("logits not finite")
+    return (float((g - w).abs().max()),
+            float((g.argmax(-1) == w.argmax(-1)).float().mean()))
+
+
+def _top_layers(params, n: int):
+    """The same parameter tree cut to its first ``n`` layers (views)."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[:n]
+    return dict(params, blocks=cut(params["blocks"]))
+
+
+@torch.no_grad()
+def serve_model(arch: str, kernel: str, ref_depth: int,
+                dev: torch.device, profile: bool = False) -> int:
+    """Serve ``SERVE`` through ``BatchedServer`` twice at the full width of
+    ``arch``; returns the launches of ``kernel`` in those two runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import BatchedServer, make_requests
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"{arch}: {tf.param_count(cfg) / 1e9:.3f}B {cfg.param_dtype} params "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, compute "
+        f"{cfg.compute_dtype}) made on the card in "
+        f"{time.perf_counter() - t0:.1f}s; card: {card_line()}")
+    server = BatchedServer(cfg, params=params, batch=SERVE["batch"],
+                           device=str(dev))
+    waves = -(-SERVE["requests"] // SERVE["batch"])
+    outputs = []
+    torch.cuda.synchronize()
+    reset_launches()
+    for attempt in (1, 2):
+        before = launch_counts()[kernel]
+        stats0 = dict(server.stats)
+        reqs = make_requests(cfg, SERVE["requests"], SERVE["prompt_len"],
+                             SERVE["max_new"], seed=0)
+        t = time.perf_counter()
+        done = server.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = launch_counts()[kernel] - before
+        if launched != cfg.n_layers * waves:
+            raise AssertionError(f"{arch}#{attempt}: {kernel} launched "
+                                 f"{launched} times, expected {cfg.n_layers} "
+                                 f"layers x {waves} waves")
+        toks = [r.out_tokens for r in done]
+        if any(len(tk) != SERVE["max_new"] or min(tk) < 0
+               or max(tk) >= cfg.vocab_size for tk in toks):
+            raise AssertionError(f"{arch}#{attempt}: bad output tokens")
+        st = {k: server.stats[k] - stats0[k] for k in stats0}
+        n_tok = sum(len(tk) for tk in toks)
+        log(f"  {arch}#{attempt}: {len(done)} requests in {waves} waves, "
+            f"{n_tok} tokens in {wall:.3f}s ({n_tok / wall:.1f} tok/s); "
+            f"prefill {st['prefill_s'] / st['prefills'] * 1e3:.1f} ms a wave "
+            f"of {SERVE['batch']}x{SERVE['prompt_len']}; decode "
+            f"{st['decode_s'] / st['decode_steps'] * 1e3:.2f} ms a step "
+            f"({st['decode_steps']:.0f} steps); {kernel} launches={launched}")
+        outputs.append(toks)
+    torch.cuda.synchronize()
+    launches = launch_counts()[kernel]
+    if outputs[0] != outputs[1]:
+        raise AssertionError(f"{arch}: the second run gave other tokens")
+    log(f"  {arch}: second run token-identical; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # the kernel route against the plain route, last-position prefill
+    # logits, with the fp32 plain route as the yardstick
+    prompts = np.stack([r.prompt for r in make_requests(
+        cfg, SERVE["batch"], SERVE["prompt_len"], 1, seed=0)])
+    toks = torch.tensor(prompts, dtype=torch.long, device=dev)
+    ref_depth = min(ref_depth, cfg.n_layers)
+    rcfg = cfg.replace(n_layers=ref_depth)
+    rparams = _top_layers(params, ref_depth)
+    plain = dict(attn_impl="reference", ssm_impl="reference")
+
+    def last_logits(c):
+        return tf.forward_prefill(rparams, {"tokens": toks}, c)[0]
+    truth = last_logits(rcfg.replace(compute_dtype="float32", **plain))
+    scale = float(truth.abs().max())
+    e32, a32 = _gap(last_logits(rcfg.replace(compute_dtype="float32")), truth)
+    ek, ak = _gap(last_logits(rcfg), truth)
+    ep, ap_ = _gap(last_logits(rcfg.replace(**plain)), truth)
+    log(f"  {arch}: prefill logits at depth {ref_depth} of {cfg.n_layers} "
+        f"(|logits| max {scale:.3g}) against the fp32 plain route: fp32 "
+        f"kernel route max_abs_err={e32:.3g} argmax_agree={a32:.3f}; "
+        f"{cfg.compute_dtype} kernel route {ek:.4g} ({ak:.3f}); "
+        f"{cfg.compute_dtype} plain route {ep:.4g} ({ap_:.3f})")
+    if e32 > F32_LOGITS_ATOL:
+        raise AssertionError(f"{arch}: fp32 kernel route {e32:.3g} from the "
+                             f"plain route, beyond {F32_LOGITS_ATOL}")
+    if ek > 2.0 * ep + BF16_MARGIN:
+        raise AssertionError(f"{arch}: {cfg.compute_dtype} kernel route "
+                             f"{ek:.4g} from the fp32 model, beyond twice the "
+                             f"plain route's {ep:.4g} + {BF16_MARGIN}")
+
+    # teacher forcing in fp32: prefill S-4 tokens, then 4 decode steps ==
+    # prefill S
+    S = SERVE["prompt_len"]
+    fcfg = cfg.replace(compute_dtype="float32")
+    lg, cache = tf.forward_prefill(params, {"tokens": toks[:, :S - 4]}, fcfg)
+    cache = tf.grow_cache(cache, fcfg, S)
+    for t in range(S - 4, S):
+        lg, cache = tf.decode_step(params, cache, {"tokens": toks[:, t:t + 1]},
+                                   fcfg)
+    lg_full, _ = tf.forward_prefill(params, {"tokens": toks}, fcfg)
+    err, agree = _gap(lg, lg_full)
+    log(f"  {arch}: fp32 prefill {S - 4} + 4 decode steps vs prefill {S}: "
+        f"max_abs_err={err:.3g} argmax_agree={agree:.3f} tol={TF_TOL}")
+    if not torch.allclose(lg.float(), lg_full.float(), rtol=TF_TOL[0],
+                          atol=TF_TOL[1]):
+        raise AssertionError(f"{arch}: decode disagrees with prefill")
+    del cache
+    if profile:
+        out = {}
+
+        def prefill():
+            out["cache"] = tf.forward_prefill(params, {"tokens": toks},
+                                              cfg)[1]
+        profile_device(f"{arch} prefill {SERVE['batch']}x{S}", prefill)
+        cache = tf.grow_cache(out.pop("cache"), cfg, S + 1)
+        profile_device(f"{arch} decode step at {S}",
+                       lambda: tf.decode_step(params, cache,
+                                              {"tokens": toks[:, -1:]}, cfg))
+    del server, params, rparams
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, profile one more fused Q4.1 "
-                         "run (device busy time by kernel, idle share)")
+                    help="also profile one more fused Q4.1 run, and one "
+                         "prefill and one decode step of each LM (device "
+                         "busy time by kernel, idle share)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core import resolve_backend
     from repro_torch.etl.queries import build_q1, build_q4
     from repro_torch.etl.ssb import generate
     from repro_torch.kernels import _cuda
+
+    # fp32 comparisons in full fp32: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # ---- phase 1: setup
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -455,8 +791,10 @@ def main() -> int:
     log(f"ptxas: {ptxas_summary(_cuda.build_log)}")
     bk = resolve_backend("torch")
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
 
-    # ---- phase 2: kernels vs plain versions at the main path's shapes
+    # ---- phase 2: kernels vs plain versions at the main paths' shapes
     t0 = time.perf_counter()
     data = generate(**SF1)
     log(f"SSB SF1 generated in {time.perf_counter() - t0:.1f}s: lineorder "
@@ -467,10 +805,13 @@ def main() -> int:
     log("kernels:")
     measured = {"hash_probe": phase_hash_probe(bk, data),
                 "radix_groupby": phase_radix_groupby(rng),
-                "segment_sum": phase_segment_sum(rng)}
+                "segment_sum": phase_segment_sum(rng),
+                "flash_attention": phase_flash_attention(gen),
+                "mamba_scan": phase_mamba_scan(gen)}
+    torch.cuda.empty_cache()
 
-    # ---- phase 3: the main path
-    log("main path (SSB SF1, backend torch, fused, 8 splits):")
+    # ---- phase 3: the ETL main path
+    log("ETL main path (SSB SF1, backend torch, fused, 8 splits):")
     t0 = time.perf_counter()
     expect = {"Q4.1": build_q4(data).oracle(data),
               "Q1.1": build_q1(data).oracle(data)}
@@ -478,23 +819,42 @@ def main() -> int:
     launches = run_main(data, expect)
     if args.profile:
         profile_q41(data)
+    del data
 
-    # ---- phase 4: result lines
+    # ---- phase 4: the LM serving path, one model at a time
+    log(f"LM serving path ({SERVE}):")
+    launches["flash_attention"] = serve_model(
+        "stablelm-3b", "flash_attention", ref_depth=32, dev=gen.device,
+        profile=args.profile)
+    launches["mamba_scan"] = serve_model(
+        "falcon-mamba-7b", "mamba_scan", ref_depth=8, dev=gen.device,
+        profile=args.profile)
+
+    # ---- phase 5: result lines
     sources = {"hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
                               "src/repro/kernels/hash_join/kernel.py:68"),
                "radix_groupby": ("src/repro_torch/csrc/radix_groupby.cu",
                                  "src/repro/kernels/radix_groupby/kernel.py:73"),
                "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
-                               "src/repro/kernels/segment_sum/kernel.py:62")}
+                               "src/repro/kernels/segment_sum/kernel.py:62"),
+               "flash_attention": (
+                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:111"),
+               "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                              "src/repro/kernels/mamba_scan/kernel.py:79")}
     kernels = []
     for name, (src, replaces) in sources.items():
         m = measured[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-                        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                        "bound_by": m["bound_by"],
-                        "library_ms": m["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+               "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+               "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+        if name == "mamba_scan":
+            row["library_note"] = ("none: no single PyTorch call computes "
+                                   "the selective scan")
+        kernels.append(row)
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,15 @@ the hash-probe, radix-groupby and segment-sum kernels written in CUDA
 the kernels' plain torch versions (the CPU tests use it).  ``"numpy"`` is
 the host reference.
 
+The LM side (``configs``, ``models``, ``train.serve_step``,
+``launch.serve``) serves the dense and SSM families on the card through the
+flash-attention and selective-scan kernels:
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchedServer, make_requests
+    cfg = get_config("stablelm-3b")
+    BatchedServer(cfg, batch=4).run(make_requests(cfg, 8, 2048, 32))
+
     from repro_torch.core import OptimizedEngine, OptimizeOptions
     from repro_torch.etl import build_q4, generate
     q = build_q4(generate(lineorder_rows=100_000))

@@ -9,6 +9,10 @@
 #   segment_sum     — the same reduction without counts, for global
 #                     aggregates and the sort-route fallback
 #                     (csrc/segment_sum.cu).
+#   flash_attention — GQA attention with an online softmax for the dense
+#                     models' prefill (csrc/flash_attention.cu).
+#   mamba_scan      — the Mamba-1 selective scan for the SSM models' prefill
+#                     (csrc/mamba_scan.cu).
 #
 # Each package has ops.py (the wrapper: the kernel on a CUDA tensor, the
 # plain version on a CPU tensor, a launch counter) and ref.py (the plain

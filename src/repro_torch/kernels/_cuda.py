@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 #: C entry points and their argument types (every pointer and the stream as
 #: c_void_p; each returns a cudaError_t code).  They launch on the calling
 #: thread's current device, which the wrappers set with
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "repro_radix_groupby": (_P, _P, _I64, _I, _I, _I64, _I, _P, _P, _P, _P,
                             _P),
     "repro_segment_sum": (_P, _P, _I64, _I, _I, _I64, _I, _P, _P, _P, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _F, _I, _P),
+    "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P),
 }
 
 _lock = threading.Lock()
@@ -55,7 +60,8 @@ build_log = ""
 build_seconds = 0.0
 
 LAUNCHES: Dict[str, int] = {"hash_probe": 0, "radix_groupby": 0,
-                            "segment_sum": 0}
+                            "segment_sum": 0, "flash_attention": 0,
+                            "mamba_scan": 0}
 _count_lock = threading.Lock()
 
 

@@ -1,0 +1,8 @@
+from .layers import NO_RULES, Rules
+from .transformer import (backbone, decode_step, forward_prefill, grow_cache,
+                          init_params, make_cache_shapes, n_periods,
+                          param_count, param_shapes, period)
+
+__all__ = ["NO_RULES", "Rules", "backbone", "decode_step", "forward_prefill",
+           "grow_cache", "init_params", "make_cache_shapes", "n_periods",
+           "param_count", "param_shapes", "period"]

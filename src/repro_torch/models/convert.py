@@ -1,0 +1,44 @@
+"""Carry parameter and cache trees across from numpy arrays.
+
+The reference's trees, turned to numpy (``jax.tree.map(np.asarray, ...)``),
+become the port's: the same nested dicts, with torch tensors on ``device``.
+Every leaf is COPIED, because ``torch.from_numpy`` shares the numpy buffer.
+bfloat16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses)
+are copied as their uint16 bits and reinterpreted as ``torch.bfloat16``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """One array -> a tensor on ``device`` that owns its memory."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a.view(np.uint16), copy=True))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree: Any, device="cpu") -> Any:
+    """Nested dicts of numpy arrays -> the same dicts of tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
+
+
+def cache_from_numpy(tree: Any, device="cpu") -> Any:
+    """A decode cache: like ``params_from_numpy``, with ``pos_idx`` as the
+    host int the port's cache keeps."""
+    out = {}
+    for k, v in tree.items():
+        if k == "pos_idx":
+            out[k] = int(np.asarray(v))
+        elif isinstance(v, dict):
+            out[k] = params_from_numpy(v, device)
+        else:
+            out[k] = tensor_from_numpy(v, device)
+    return out

@@ -1,0 +1,138 @@
+"""Mamba-1 (selective SSM) block, in torch.
+
+Recurrence (per channel c, state n):
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t
+    y_t = C_t . h_t + D * x_t
+with input-dependent dt (softplus), B, C from x_proj.
+
+Prefill runs the selective-scan kernel (``kernels/mamba_scan``) unless
+``ssm_impl == "reference"``, which takes the reference's chunked two-level
+scan in plain torch.  Decode is a single recurrence step on the carried
+(conv_state, h).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.mamba_scan import mamba_scan
+from .layers import Rules, dt
+
+
+def _ssm_chunk_scan(h0: torch.Tensor, dA: torch.Tensor, dBx: torch.Tensor,
+                    C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scan one chunk.  h0: [B, di, N]; dA, dBx: [B, T, di, N]; C: [B, T, N].
+    Returns (h_T, y [B, T, di])."""
+    h = h0
+    ys = []
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    return h, torch.stack(ys, dim=1)
+
+
+def _ssm_chunk_scan_fused(h0: torch.Tensor, delta: torch.Tensor,
+                          x: torch.Tensor, Bm: torch.Tensor, C: torch.Tensor,
+                          A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same scan with the [B, di, N] outer products formed inside each
+    step from the per-step slices (delta/x [B, di], B/C [B, N])."""
+    h = h0
+    ys = []
+    for t in range(delta.shape[1]):
+        d_t = delta[:, t, :, None]
+        dA_t = torch.exp(d_t * A)
+        dBx_t = d_t * Bm[:, t, None, :] * x[:, t, :, None]
+        h = dA_t * h + dBx_t
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    return h, torch.stack(ys, dim=1)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv1d (cross-correlation, no flip).  x: [B, T, di];
+    w: [K, di].  ``state``: [B, K-1, di] carried inputs for decode; without
+    it the input is left-padded with K-1 zeros."""
+    K = w.shape[0]
+    if state is not None:
+        x = torch.cat([state.to(x.dtype), x], dim=1)
+    else:
+        x = F.pad(x, (0, 0, K - 1, 0))
+    out = F.conv1d(x.transpose(1, 2), w.t()[:, None, :], groups=w.shape[1])
+    return out.transpose(1, 2)
+
+
+def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
+                rules: Rules,
+                state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor,
+                           Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """x: [B, T, d].  ``state`` = (conv_state [B, K-1, di], h [B, di, N]) for
+    decode (T == 1); None for prefill.  Returns (out, new_state)."""
+    B, T, d = x.shape
+    di, N, dtr, K = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.d_conv
+    cdt = dt(cfg.compute_dtype)
+    xc = x.to(cdt)
+
+    xz = xc @ p["in_proj"].to(cdt)
+    xin, z = xz.chunk(2, dim=-1)                      # [B, T, di] each
+
+    conv_w = p["conv_w"].to(cdt)                      # [K, di]
+    if state is not None:
+        conv_state, h0 = state
+        xconv = _causal_conv(xin, conv_w, state=conv_state)
+        new_conv_state = torch.cat([conv_state[:, 1:],
+                                    xin.to(conv_state.dtype)], dim=1)
+    else:
+        xconv = _causal_conv(xin, conv_w)
+        h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
+        new_conv_state = xin[:, -(K - 1):]            # for prefill -> decode
+    xconv = F.silu(xconv + p["conv_b"].to(cdt))
+
+    # input-dependent dt, B, C
+    dbc = xconv @ p["x_proj"].to(cdt)
+    dt_in, B_in, C_in = torch.split(dbc, [dtr, N, N], dim=-1)
+    delta = F.softplus(dt_in @ p["dt_proj"].to(cdt) + p["dt_bias"].to(cdt))
+    A = -torch.exp(p["A_log"].float())                # [di, N]
+
+    delta32 = delta.float()
+    B32 = B_in.float()
+    x32 = xconv.float()
+    C32 = C_in.float()
+
+    if T == 1:
+        dA = torch.exp(delta32[:, 0, :, None] * A)    # [B, di, N]
+        dBx = (delta32[:, 0, :, None] * B32[:, 0, None, :]
+               * x32[:, 0, :, None])
+        h = dA * h0 + dBx
+        y = torch.einsum("bdn,bn->bd", h, C32[:, 0])[:, None]
+        hT = h
+    elif cfg.ssm_impl in ("auto", "cuda"):
+        y, hT = mamba_scan(delta32.contiguous(), x32.contiguous(),
+                           B32.contiguous(), C32.contiguous(), A.contiguous(),
+                           h0, impl=cfg.ssm_impl)
+    elif cfg.ssm_impl != "reference":
+        raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
+    else:
+        # chunked two-level scan (zero-padded steps leave h unchanged)
+        ch = min(cfg.ssm_chunk, T)
+        hT = h0
+        ys = []
+        for t0 in range(0, T, ch):
+            sl = slice(t0, t0 + ch)
+            dl, Bc, xck, Cc = delta32[:, sl], B32[:, sl], x32[:, sl], C32[:, sl]
+            if cfg.ssm_fused_ref:
+                hT, yc = _ssm_chunk_scan_fused(hT, dl, xck, Bc, Cc, A)
+            else:
+                dA = torch.exp(dl[..., None] * A)     # [B, ch, di, N]
+                dBx = dl[..., None] * Bc[:, :, None, :] * xck[..., None]
+                hT, yc = _ssm_chunk_scan(hT, dA, dBx, Cc)
+            ys.append(yc)
+        y = torch.cat(ys, dim=1)
+
+    y = y.to(cdt) + x32.to(cdt) * p["D"].to(cdt)
+    y = y * F.silu(z)
+    out = y @ p["out_proj"].to(cdt)
+    new_state = (new_conv_state, hT) if (state is not None or T > 1) else None
+    return out, new_state

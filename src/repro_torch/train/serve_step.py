@@ -1,0 +1,57 @@
+"""Serving: prefill + decode steps on a cache that decode updates in place.
+
+Decode writes each token's k/v (or SSM state) into the grown cache's
+memory: the reference's donated cache buffer, the paper's shared caching
+scheme applied to serving, with no copy per token.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..models.layers import NO_RULES, Rules
+from ..models.transformer import decode_step, forward_prefill, grow_cache
+
+
+def make_serve_steps(cfg, rules: Rules = NO_RULES):
+    """Returns (prefill_fn, decode_fn)."""
+
+    def prefill(params, batch):
+        return forward_prefill(params, batch, cfg, rules)
+
+    def decode(params, cache, batch):
+        return decode_step(params, cache, batch, cfg, rules)
+
+    return prefill, decode
+
+
+def sample_token(logits: torch.Tensor, temperature: float = 0.0,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """logits [B, 1, V] -> tokens [B, 1]: greedy at temperature 0, else a
+    draw from softmax(logits / temperature) with ``generator``."""
+    last = logits[:, -1].float()
+    if temperature <= 0.0:
+        return torch.argmax(last, dim=-1)[:, None]
+    probs = torch.softmax(last / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)
+
+
+@torch.no_grad()
+def generate(params, cfg, prompts: torch.Tensor, max_new_tokens: int,
+             rules: Rules = NO_RULES, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Batched greedy/temperature generation (the plain serving loop).
+    prompts: [B, S] int on the parameters' device -> [B, max_new_tokens]."""
+    batch: Dict[str, Any] = {"tokens": prompts}
+    logits, cache = forward_prefill(params, batch, cfg, rules)
+    cache = grow_cache(cache, cfg, prompts.shape[1] + max_new_tokens)
+    tok = sample_token(logits, temperature, generator)
+    out = [tok]
+    for _ in range(max_new_tokens - 1):
+        logits, cache = decode_step(params, cache, {"tokens": tok}, cfg,
+                                    rules)
+        tok = sample_token(logits, temperature, generator)
+        out.append(tok)
+    return torch.cat(out, dim=1)

@@ -131,3 +131,100 @@ def test_torch_backend_matches_torch_cpu(dev, qname):
             np.testing.assert_allclose(got[col], w, rtol=1e-5)
         else:
             np.testing.assert_array_equal(got[col], w)
+
+
+# ------------------------------------------------------- LM-path kernels
+# Flash attention: the kernel against the plain version on the same card
+# tensors.  fp32 within rtol 2e-4 / atol 2e-5 (both sum the softmax in
+# fp32, in other orders); bf16 within 2e-2 (the output is rounded to bf16
+# and the probabilities to bf16 before the value product, at other points
+# of the online softmax).
+@pytest.mark.parametrize("B,Sq,Skv,Kh,G,hd,causal,window,softcap,dtype", [
+    (1, 64, 64, 1, 1, 32, True, 0, 0.0, "float32"),
+    (2, 128, 128, 2, 2, 64, True, 0, 0.0, "float32"),
+    (2, 128, 128, 2, 2, 64, False, 0, 0.0, "float32"),
+    (1, 96, 96, 2, 4, 32, True, 24, 0.0, "float32"),
+    (1, 64, 64, 4, 1, 64, True, 0, 30.0, "float32"),
+    (2, 80, 80, 1, 8, 16, True, 0, 0.0, "float32"),
+    (1, 33, 57, 1, 2, 8, False, 0, 0.0, "float32"),
+    (1, 100, 20, 1, 2, 16, False, 10, 0.0, "float32"),   # rows fully masked
+    (2, 300, 300, 2, 4, 128, True, 100, 30.0, "bfloat16"),
+    (1, 77, 213, 1, 2, 256, False, 0, 0.0, "bfloat16"),
+    (2, 257, 257, 4, 1, 80, True, 0, 0.0, "bfloat16"),
+    (1, 190, 190, 2, 1, 96, True, 0, 0.0, "float32"),
+])
+def test_flash_attention_kernel_matches_plain(dev, B, Sq, Skv, Kh, G, hd,
+                                              causal, window, softcap,
+                                              dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(RNG.normal(size=(B, Sq, Kh, G, hd))).to(dev, dt)
+    k = torch.from_numpy(RNG.normal(size=(B, Skv, Kh, hd))).to(dev, dt)
+    v = torch.from_numpy(RNG.normal(size=(B, Skv, Kh, hd))).to(dev, dt)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    reset_launches()
+    got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    assert launch_counts()["flash_attention"] == 2
+    want = flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dt and _same(got, again)
+    tol = (2e-4, 2e-5) if dtype == "float32" else (2e-2, 2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+# Selective scan: fp32 in both, within rtol 1e-4 / atol 1e-4 (the kernel
+# fuses multiply-adds and sums the N states in its own order).
+@pytest.mark.parametrize("Bt,T,d,N", [(1, 16, 8, 4), (2, 48, 24, 8),
+                                      (2, 100, 32, 16), (1, 64, 48, 16),
+                                      (3, 333, 1000, 16), (2, 70, 130, 5),
+                                      (1, 40, 64, 32)])
+def test_mamba_scan_kernel_matches_plain(dev, Bt, T, d, N):
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
+    delta = np.abs(RNG.normal(size=(Bt, T, d))).clip(0.01, 1.0)
+    args = [torch.from_numpy(a).to(dev, torch.float32) for a in (
+        delta, RNG.normal(size=(Bt, T, d)), RNG.normal(size=(Bt, T, N)),
+        RNG.normal(size=(Bt, T, N)), -np.abs(RNG.normal(size=(d, N))) - 0.05,
+        RNG.normal(size=(Bt, d, N)))]
+    reset_launches()
+    y, hT = mamba_scan(*args)
+    y2, hT2 = mamba_scan(*args)
+    assert launch_counts()["mamba_scan"] == 2
+    assert _same(y, y2) and _same(hT, hT2)
+    y_ref, hT_ref = mamba_scan_ref(*args)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(hT, hT_ref, rtol=1e-4, atol=1e-4)
+
+
+def test_mamba_scan_kernel_continuation(dev):
+    """Two halves with hT -> h0 give the full scan, bit for bit."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    Bt, T, d, N = 2, 200, 96, 16
+    delta = np.abs(RNG.normal(size=(Bt, T, d))).clip(0.01, 1.0)
+    dl, x, Bm, Cm = (torch.from_numpy(a).to(dev, torch.float32) for a in (
+        delta, RNG.normal(size=(Bt, T, d)), RNG.normal(size=(Bt, T, N)),
+        RNG.normal(size=(Bt, T, N))))
+    A = torch.from_numpy(-np.abs(RNG.normal(size=(d, N))) - 0.05).to(
+        dev, torch.float32)
+    h0 = torch.zeros((Bt, d, N), dtype=torch.float32, device=dev)
+    y, hT = mamba_scan(dl, x, Bm, Cm, A, h0)
+    h = slice(0, 77), slice(77, T)
+    y1, h1 = mamba_scan(*(t[:, h[0]].contiguous() for t in (dl, x, Bm, Cm)),
+                        A, h0)
+    y2, h2 = mamba_scan(*(t[:, h[1]].contiguous() for t in (dl, x, Bm, Cm)),
+                        A, h1)
+    assert _same(torch.cat([y1, y2], 1), y) and _same(h2, hT)
+
+
+def test_lm_kernels_refuse_what_they_do_not_take(dev):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    q = torch.zeros((1, 4, 1, 1, 24), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q[:, :, :, 0], q[:, :, :, 0].contiguous())
+    z = torch.zeros((1, 4, 8), device=dev)
+    s = torch.zeros((1, 4, 33), device=dev)
+    with pytest.raises(ValueError, match="state size"):
+        mamba_scan(z, z, s, s, torch.zeros((8, 33), device=dev),
+                   torch.zeros((1, 8, 33), device=dev))
