@@ -7,11 +7,13 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Setup: torch/CUDA versions, the card's name and power limit, and the
-   build of every ``src/repro_torch/csrc/*.cu`` kernel (timed).
+   build of every ``src/repro_torch/csrc/*.cu`` kernel (timed), with each
+   flash entry point's registers and spills as ``ptxas`` reports them.
 2. Kernels: each hand-written kernel against its plain torch version on the
    card, at the shapes its main path gives it (SSB scale factor 1 for the
    ETL kernels; stablelm-3b and falcon-mamba-7b prefill for flash attention
-   and the selective scan) plus small cases for the options those paths do
+   and the selective scan; flash on both of its routes, bf16 on the tensor
+   cores and fp32 in FMAs) plus small cases for the options those paths do
    not use, twice (bit-identical), with its median time (CUDA events), its
    bound, the plain version's time and a PyTorch library call as a
    yardstick the port never calls.
@@ -109,15 +111,47 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_entries(build_log: str) -> dict:
+    """Registers a thread and spill bytes (stores + loads) of each entry
+    point, by mangled name, from what ``nvcc -Xptxas -v`` printed."""
+    out = {}
+    for block in build_log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", block))
+        out[name] = (int(regs.group(1)) if regs else -1, spills)
+    return out
+
+
 def ptxas_summary(build_log: str) -> str:
-    """Entry points, most registers a thread and total spill bytes, from
-    what ``nvcc -Xptxas -v`` printed."""
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", build_log)]
-    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", build_log))
-    if not regs:
+    """Entry points, most registers a thread and total spill bytes."""
+    entries = ptxas_entries(build_log).values()
+    if not entries:
         return "no report (the library was already built)"
-    return (f"{len(regs)} entry points, at most {max(regs)} registers a "
-            f"thread, {spills} bytes of spills")
+    return (f"{len(entries)} entry points, at most "
+            f"{max(r for r, _ in entries)} registers a thread, "
+            f"{sum(s for _, s in entries)} bytes of spills")
+
+
+def flash_ptxas(build_log: str) -> None:
+    """Print each flash entry point's registers and spills; the bf16
+    tensor-core kernel must not spill at the head dims of the served
+    models (80: stablelm-3b; 128)."""
+    rows = []
+    for name, (regs, spills) in ptxas_entries(build_log).items():
+        m = re.search(r"flash_(wgmma_)?kernelI(?:f)?Li(\d+)E", name)
+        if m:
+            route = "bf16 wgmma" if m.group(1) else "fp32 FMA"
+            rows.append((route, int(m.group(2)), regs, spills))
+    if not rows:
+        log("  flash ptxas: no report (the library was already built)")
+        return
+    for route, hd, regs, spills in sorted(rows):
+        log(f"  flash ptxas: {route} hd {hd}: {regs} registers a thread, "
+            f"{spills} bytes of spills")
+        if route.startswith("bf16") and hd in (80, 128) and spills:
+            raise AssertionError(f"flash {route} hd {hd} spills {spills} "
+                                 f"bytes")
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -391,28 +425,44 @@ def _flash_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window, softcap,
     pairs = allowed_pairs(Sq, Skv, causal, window)
     flops = 4 * B * Kh * G * hd * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bnd, by = bound_ms(nbytes, flops, PEAK_BF16_S)
+    # bf16 products: the tensor cores; fp32: FMAs outside them
+    bnd, by = bound_ms(nbytes, flops, PEAK_BF16_S if dtype == torch.bfloat16
+                       else PEAK_OPS_S)
     lib = f"{library_ms:.4f}" if library_ms is not None else "none"
     log(f"  flash_attention[{label}]: B={B} Sq={Sq} Skv={Skv} Kh={Kh} G={G} "
         f"hd={hd} causal={causal} window={window} softcap={softcap} "
         f"{str(dtype).split('.')[-1]} pairs={pairs} max_abs_err={err:.3g} "
         f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
         f"bound_ms={bnd:.4f} ({by}) tflops={flops / ms / 1e9:.2f} "
-        f"bit_stable=True")
+        f"share_of_bound={bnd / ms:.4f} bit_stable=True")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bnd, bound_by=by, max_abs_err=err)
 
 
 def phase_flash_attention(gen) -> dict:
+    """Both flash kernels at the stablelm-3b prefill shape (4 prompts of
+    2048 tokens, 32 heads (MHA), hd 80, causal), each beside
+    scaled_dot_product_attention in its dtype; the kernels line's flash row
+    is the bf16 tensor-core kernel the served model runs, with the fp32 FMA
+    kernel's numbers in fields of their own."""
     bf16, f32 = torch.bfloat16, torch.float32
-    # stablelm-3b prefill: 4 prompts of 2048 tokens, 32 heads (MHA), hd 80
-    main = _flash_case("stablelm-3b prefill", gen, 4, 2048, 2048, 32, 1, 80,
-                       True, 0, 0.0, bf16, library=True)
+    shape = (4, 2048, 2048, 32, 1, 80, True, 0, 0.0)
+    main = _flash_case("stablelm-3b prefill, bf16 tensor cores", gen, *shape,
+                       bf16, library=True)
+    fp32 = _flash_case("stablelm-3b prefill, fp32 FMA", gen, *shape, f32,
+                       library=True)
+    main.update({f"fp32_{k}": fp32[k] for k in ("ms", "plain_ms",
+                                                "library_ms", "bound_ms",
+                                                "max_abs_err")})
     # the options that path does not use: GQA, window, softcap, ragged
     # lengths, Sq != Skv, rows with no allowed key, other head dims
     for args in (("gqa+window+softcap", 2, 300, 300, 2, 4, 128, True, 100,
                   30.0, bf16),
                  ("cross ragged hd256", 1, 77, 213, 1, 2, 256, False, 0, 0.0,
+                  bf16),
+                 ("masked rows bf16 hd8", 1, 100, 20, 1, 2, 8, False, 10, 0.0,
+                  bf16),
+                 ("causal Sq>Skv bf16", 1, 200, 70, 2, 2, 96, True, 0, 0.0,
                   bf16),
                  ("masked rows fp32", 1, 100, 20, 1, 2, 16, False, 10, 0.0,
                   f32),
@@ -789,6 +839,7 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_cuda.build_seconds:.1f}s) from {_cuda.CSRC}")
     log(f"ptxas: {ptxas_summary(_cuda.build_log)}")
+    flash_ptxas(_cuda.build_log)
     bk = resolve_backend("torch")
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda")
@@ -838,7 +889,7 @@ def main() -> int:
                "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
                                "src/repro/kernels/segment_sum/kernel.py:62"),
                "flash_attention": (
-                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro_torch/csrc/flash_attention_mma.cu",
                    "src/repro/kernels/flash_attention/kernel.py:111"),
                "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                               "src/repro/kernels/mamba_scan/kernel.py:79")}
@@ -850,6 +901,12 @@ def main() -> int:
                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+        if name == "flash_attention":
+            row.update({k: v for k, v in m.items() if k.startswith("fp32_")})
+            row["fp32_note"] = ("the fp32 FMA kernel "
+                                "(src/repro_torch/csrc/flash_attention.cu) "
+                                "at the same shape; its bound is fp32 FMAs "
+                                "at 67 TFLOP/s")
         if name == "mamba_scan":
             row["library_note"] = ("none: no single PyTorch call computes "
                                    "the selective scan")

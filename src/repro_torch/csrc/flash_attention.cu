@@ -1,41 +1,40 @@
-// Flash attention with an online softmax, for grouped-query attention
-// (sm_90a).
+// Flash attention with an online softmax for fp32 (sm_90a, FMAs outside
+// the tensor cores).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:
-// _flash_kernel / flash_attention_pallas.  It computes, for every query row
-// of q [B, Sq, Kh, G, hd] against k, v [B, Skv, Kh, hd] (kv head = the
-// query's Kh index, shared by its G query heads):
+// _flash_kernel / flash_attention_pallas, for fp32 q, k, v.  bf16 inputs
+// (the model's compute dtype, every serving prefill) go to the tensor-core
+// kernel in flash_attention_mma.cu.  It computes, for every query row of
+// q [B, Sq, Kh, G, hd] against k, v [B, Skv, Kh, hd] (kv head = the query's
+// Kh index, shared by its G query heads):
 //   s = (q . k) / sqrt(hd), optionally softcap * tanh(s / softcap);
 //   allowed pairs: k_pos < Skv, and k_pos <= q_pos when causal (positions
 //   from 0, top-left aligned even when Sq != Skv), and k_pos > q_pos -
 //   window when window > 0;
 //   out = softmax(s) @ v over the allowed pairs, 0 for a row with none.
-// Scores, the softmax and the accumulator are fp32; the probabilities are
-// rounded to v's type before the value product, as the TPU kernel does.
-// The output has q's type (bf16 or fp32).
+// Scores, the softmax, the accumulator and the output are fp32.
 //
 // Bound on the H100: operations.  Causal prefill does 4 * hd flops per
-// allowed (q, k) pair and reads each q, k, v element once, so the tensor
-// cores would be the limit.  This first kernel keeps to fp32 FMAs outside
-// the tensor cores (67 TFLOP/s, not 989): it is simple and exact first;
-// mma.sync / wgmma and TMA are later work (PERF.md).  What the design does:
+// allowed (q, k) pair and reads each q, k, v element once.  fp32 cannot go
+// to the bf16 tensor cores or TF32 without leaving the fp32 tolerance, so
+// this kernel keeps to fp32 FMAs, whose peak is 67 TFLOP/s.  What the
+// design does:
 //   - One block per (folded b*Kh*G row, tile of query positions).  A loop
 //     over kv tiles inside the block replaces the TPU's sequential grid
 //     axis; the running max m, normalizer l and the output accumulator
 //     stay in registers across it.
-//   - Each kv tile (k and v, converted to fp32) is staged once in shared
-//     memory and read by every query row of the block as broadcast float4
-//     loads.  kTpr neighbouring threads share one query row, each holding
-//     hd / kTpr of its dims (interleaved in float4 chunks, so the kTpr
-//     addresses of one load fall in distinct banks); their partial dot
-//     products meet through warp shuffles.
+//   - Each kv tile (k and v) is staged once in shared memory and read by
+//     every query row of the block as broadcast float4 loads.  kTpr
+//     neighbouring threads share one query row, each holding hd / kTpr of
+//     its dims (interleaved in float4 chunks, so the kTpr addresses of one
+//     load fall in distinct banks); their partial dot products meet through
+//     warp shuffles.
 //   - Whole kv tiles that causality or the window masks for every row of
 //     the block are never loaded (the TPU kernel's pl.when pruning).
 //     k_pos >= Skv is masked inside the tile; nothing is padded.
 //   - The NEG_INF = -1e30 guards of the TPU kernel are kept as they are,
 //     and l == 0 flushes to 0.  No atomics: two launches are bit-identical.
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -52,19 +51,6 @@ struct Io<float> {
   static __device__ __forceinline__ float out(float x) { return x; }
   // rounding of the probabilities to v's type before the value product
   static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 out(float x) {
-    return __float2bfloat16(x);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
 };
 
 // Per head dim: threads per query row, dims per thread, rows per block and
@@ -233,33 +219,26 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_head_dim(int hd, const Args& a) {
-  switch (hd) {
-    case 8: return launch<T, 8>(a);
-    case 16: return launch<T, 16>(a);
-    case 32: return launch<T, 32>(a);
-    case 64: return launch<T, 64>(a);
-    case 80: return launch<T, 80>(a);
-    case 96: return launch<T, 96>(a);
-    case 128: return launch<T, 128>(a);
-    case 256: return launch<T, 256>(a);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and the output alike).
-extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int B, int Sq,
-                                     int Skv, int Kh, int G, int hd,
-                                     int causal, int window, float softcap,
-                                     float scale, int dtype, void* stream) {
+extern "C" int repro_flash_attention_fp32(const void* q, const void* k,
+                                          const void* v, void* o, int B,
+                                          int Sq, int Skv, int Kh, int G,
+                                          int hd, int causal, int window,
+                                          float softcap, float scale,
+                                          void* stream) {
   if (B <= 0 || Sq <= 0 || Kh <= 0 || G <= 0) return (int)cudaSuccess;
   const Args a{q, k, v, o, B, Sq, Skv, Kh, G, causal, window, softcap, scale,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)dispatch_head_dim<float>(hd, a);
-  if (dtype == 1) return (int)dispatch_head_dim<__nv_bfloat16>(hd, a);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 8: return (int)launch<float, 8>(a);
+    case 16: return (int)launch<float, 16>(a);
+    case 32: return (int)launch<float, 32>(a);
+    case 64: return (int)launch<float, 64>(a);
+    case 80: return (int)launch<float, 80>(a);
+    case 96: return (int)launch<float, 96>(a);
+    case 128: return (int)launch<float, 128>(a);
+    case 256: return (int)launch<float, 256>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

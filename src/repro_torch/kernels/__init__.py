@@ -10,7 +10,9 @@
 #                     aggregates and the sort-route fallback
 #                     (csrc/segment_sum.cu).
 #   flash_attention — GQA attention with an online softmax for the dense
-#                     models' prefill (csrc/flash_attention.cu).
+#                     models' prefill: bf16 on the tensor cores
+#                     (csrc/flash_attention_mma.cu), fp32 in FMAs
+#                     (csrc/flash_attention.cu).
 #   mamba_scan      — the Mamba-1 selective scan for the SSM models' prefill
 #                     (csrc/mamba_scan.cu).
 #

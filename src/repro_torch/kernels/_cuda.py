@@ -37,6 +37,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
+#: q, k, v, o, B, Sq, Skv, Kh, G, hd, causal, window, softcap, scale, stream
+_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)
 #: C entry points and their argument types (every pointer and the stream as
 #: c_void_p; each returns a cudaError_t code).  They launch on the calling
 #: thread's current device, which the wrappers set with
@@ -47,8 +49,8 @@ _SIGNATURES = {
     "repro_radix_groupby": (_P, _P, _I64, _I, _I, _I64, _I, _P, _P, _P, _P,
                             _P),
     "repro_segment_sum": (_P, _P, _I64, _I, _I, _I64, _I, _P, _P, _P, _P),
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _F, _F, _I, _P),
+    "repro_flash_attention_fp32": _FLASH,
+    "repro_flash_attention_bf16": _FLASH,
     "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _P),
 }

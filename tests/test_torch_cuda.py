@@ -135,10 +135,14 @@ def test_torch_backend_matches_torch_cpu(dev, qname):
 
 # ------------------------------------------------------- LM-path kernels
 # Flash attention: the kernel against the plain version on the same card
-# tensors.  fp32 within rtol 2e-4 / atol 2e-5 (both sum the softmax in
-# fp32, in other orders); bf16 within 2e-2 (the output is rounded to bf16
-# and the probabilities to bf16 before the value product, at other points
-# of the online softmax).
+# tensors.  fp32 (the FMA kernel) within rtol 2e-4 / atol 2e-5 (both sum the
+# softmax in fp32, in other orders); bf16 (the tensor-core kernel) within
+# 2e-2 (the output is rounded to bf16 and the probabilities to bf16 before
+# the value product, at other points of the online softmax).  The bf16
+# cases cross the tensor-core kernel's edges: 128-row q tiles (64 a
+# warpgroup) and 64-row kv tiles (32 at hd 256), lengths that are not
+# multiples of them, a window that cuts a tile, rows with no allowed key,
+# Sq != Skv with causality, G > 1, and hd 8 (zero-padded to 16) through 256.
 @pytest.mark.parametrize("B,Sq,Skv,Kh,G,hd,causal,window,softcap,dtype", [
     (1, 64, 64, 1, 1, 32, True, 0, 0.0, "float32"),
     (2, 128, 128, 2, 2, 64, True, 0, 0.0, "float32"),
@@ -152,6 +156,15 @@ def test_torch_backend_matches_torch_cpu(dev, qname):
     (1, 77, 213, 1, 2, 256, False, 0, 0.0, "bfloat16"),
     (2, 257, 257, 4, 1, 80, True, 0, 0.0, "bfloat16"),
     (1, 190, 190, 2, 1, 96, True, 0, 0.0, "float32"),
+    (1, 100, 150, 2, 1, 64, False, 0, 0.0, "bfloat16"),
+    (1, 200, 200, 2, 1, 128, True, 50, 0.0, "bfloat16"),  # window cuts tiles
+    (1, 100, 20, 1, 2, 16, False, 10, 0.0, "bfloat16"),   # rows fully masked
+    (1, 33, 57, 1, 2, 8, False, 0, 0.0, "bfloat16"),
+    (2, 80, 80, 1, 8, 16, True, 0, 0.0, "bfloat16"),
+    (1, 130, 130, 1, 2, 256, True, 0, 0.0, "bfloat16"),
+    (1, 70, 200, 2, 2, 32, True, 0, 0.0, "bfloat16"),
+    (1, 200, 70, 1, 1, 96, True, 0, 0.0, "bfloat16"),
+    (2, 190, 190, 2, 3, 80, True, 64, 10.0, "bfloat16"),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, Sq, Skv, Kh, G, hd,
                                               causal, window, softcap,
@@ -165,6 +178,8 @@ def test_flash_attention_kernel_matches_plain(dev, B, Sq, Skv, Kh, G, hd,
     kw = dict(causal=causal, window=window, softcap=softcap)
     reset_launches()
     got = flash_attention(q, k, v, **kw)
+    # either kernel (fp32 FMAs, bf16 tensor cores) counts one launch a call
+    assert launch_counts()["flash_attention"] == 1
     again = flash_attention(q, k, v, **kw)
     assert launch_counts()["flash_attention"] == 2
     want = flash_attention_ref(q, k, v, **kw)
@@ -223,6 +238,12 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((1, 4, 1, 1, 24), device=dev)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q[:, :, :, 0], q[:, :, :, 0].contiguous())
+    # the bf16 kernel copies 16-byte rows
+    flat = torch.zeros(4 * 16 + 1, dtype=torch.bfloat16, device=dev)
+    qb = flat[1:].view(1, 4, 1, 1, 16)
+    kb = torch.zeros((1, 4, 1, 16), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(qb, kb, kb)
     z = torch.zeros((1, 4, 8), device=dev)
     s = torch.zeros((1, 4, 33), device=dev)
     with pytest.raises(ValueError, match="state size"):
