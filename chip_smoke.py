@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
    cores and fp32 in FMAs) plus small cases for the options those paths do
    not use, twice (bit-identical), with its median time (CUDA events), its
    bound, the plain version's time and a PyTorch library call as a
-   yardstick the port never calls.
+   yardstick the port never calls.  For each grouped-sum case, the device
+   kernels one call launches and their device time (``torch.profiler``);
+   at the main paths' shapes a call may launch at most two.
 3. ETL main path: SSB scale factor 1 (seed 42) through the port's engines on
    backend ``torch`` with segment fusion: Q4.1 on OptimizedEngine and
    StreamingEngine, Q1.1 on OptimizedEngine.  Each run is checked against
@@ -272,6 +274,7 @@ def _grouped_case(label, ids, vals, n_groups, kernel, plain, library,
     ms = time_ms(lambda: kernel(ids, vals, n_groups))
     plain_ms = time_ms(lambda: plain(ids, vals, n_groups), iters=10)
     library_ms = time_ms(library, iters=10)
+    n_kernels, device_ms = call_kernels(lambda: kernel(ids, vals, n_groups))
     out_cols = c + (1 if with_counts else 0)
     nbytes = n * 4 + n * c * 4 + n_groups * out_cols * 4
     b, by = bound_ms(nbytes, n * out_cols)
@@ -280,9 +283,43 @@ def _grouped_case(label, ids, vals, n_groups, kernel, plain, library,
         f"max_rel_err={rel:.3g} err_vs_f64={err64:.3g} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} bound_ms={b:.4f} ({by}) "
-        f"bit_stable=True")
+        f"bit_stable=True kernels_a_call="
+        f"{n_kernels if n_kernels is not None else 'not measured'} "
+        f"device_ms_a_call="
+        f"{f'{device_ms:.4f}' if device_ms is not None else 'not measured'}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b,
-                bound_by=by, max_abs_err=err)
+                bound_by=by, max_abs_err=err, kernels_a_call=n_kernels)
+
+
+def call_kernels(fn, attempts: int = 3):
+    """Device kernels one call of ``fn`` launches and their summed device
+    time in ms, from ``torch.profiler`` (copies and memsets not counted).
+    Beside the call's event time, this says how much of it is the host's.
+    A session that records no kernel (the profiler drops one now and then)
+    is run again; after ``attempts`` such sessions, (None, None): not
+    measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        if spans:
+            return len(spans), sum(t.end - t.start for t in spans) / 1e3
+    return None, None
+
+
+def check_main_launches(label: str, m: dict) -> None:
+    """A grouped sum at its main-path shape runs at most two kernels."""
+    if m["kernels_a_call"] is not None and m["kernels_a_call"] > 2:
+        raise AssertionError(f"{label}: one call launched "
+                             f"{m['kernels_a_call']} device kernels, more "
+                             f"than 2")
 
 
 def _index_add_yardstick(ids, vals, n_groups, with_counts):
@@ -319,6 +356,7 @@ def phase_radix_groupby(rng) -> dict:
             f"radix_groupby[{label}]", ids, v, cells, kernel,
             radix_groupby_ref, _index_add_yardstick(ids, v, cells, True),
             with_counts=True, exact=exact)
+        check_main_launches(f"radix_groupby[{label}]", results[label])
     # many partitions: 2^20 cells, 4M rows, ~2% padding rows
     n, cells = 4 << 20, 1 << 20
     big = rng.integers(0, cells, n).astype(np.int32)
@@ -353,6 +391,7 @@ def phase_segment_sum(rng) -> dict:
             f"segment_sum[{label}]", ids, v, 1, kernel,
             segment_sum_ref, _index_add_yardstick(ids, v, 1, False),
             with_counts=False, exact=exact)
+        check_main_launches(f"segment_sum[{label}]", results[label])
     n, groups = 1 << 20, 4096
     ids = torch.from_numpy(rng.integers(0, groups, n).astype(np.int32)).to(dev)
     v = torch.from_numpy(rng.integers(0, 16, (n, 1)).astype(np.float32)).to(dev)

@@ -1,12 +1,14 @@
-// Radix-partitioned grouped aggregation: float32 sums + counts (sm_90a).
+// Grouped aggregation over dense ids: float32 sums + counts (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/radix_groupby/kernel.py:
 // _radix_groupby_kernel / radix_groupby_pallas, which swept every row tile
 // once per 256-id partition and reduced each tile with a one-hot matmul
 // carrying a [256, C+1] accumulator (the appended ones column yields the
-// counts).  Here the rows are moved into partition order once and each
-// partition's rows are reduced in a fixed order: see grouped_sum.cuh for
-// the passes, the bound (bytes) and the determinism argument.
+// counts).  Here a small id space (Q4.1's 147 cells) is summed directly in
+// one cooperative launch, and a large one is moved into partition order
+// once and each partition's rows reduced in a fixed order: see
+// grouped_sum.cuh for both routes, the bound (bytes) and the determinism
+// argument.
 #include "grouped_sum.cuh"
 
 extern "C" int repro_radix_groupby(const void* ids, const void* values,

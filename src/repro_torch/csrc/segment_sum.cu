@@ -3,11 +3,12 @@
 // Replaces the TPU kernel repro/kernels/segment_sum/kernel.py:
 // _segment_sum_kernel / segment_sum_pallas, which reduced each row tile
 // with a one-hot [rows, n_groups] matmul into a VMEM accumulator carried
-// across a sequential grid.  Here the same deterministic partitioned
-// reduction as the radix groupby runs without the counts column: see
-// grouped_sum.cuh for the passes, the bound (bytes) and the determinism
-// argument.  For the global aggregate (n_groups = 1) every row falls in
-// partition 0 and the sum is cut into slices summed in slice order.
+// across a sequential grid.  Here the same deterministic grouped sum as the
+// radix groupby runs without the counts column: see grouped_sum.cuh for the
+// routes, the bound (bytes) and the determinism argument.  The global
+// aggregate (n_groups = 1) takes the direct route: each warp sums its
+// 32-row batches over the lanes, the blocks' sums are added in a fixed
+// order.
 #include "grouped_sum.cuh"
 
 extern "C" int repro_segment_sum(const void* seg_ids, const void* values,

@@ -3,7 +3,7 @@
 #
 #   hash_join       — open-addressing hash build (host) + CUDA probe for the
 #                     Lookup component (csrc/hash_probe.cu).
-#   radix_groupby   — deterministic partitioned grouped sums + counts over
+#   radix_groupby   — deterministic grouped sums + counts over
 #                     dense key ids for keyed Aggregates
 #                     (csrc/radix_groupby.cu).
 #   segment_sum     — the same reduction without counts, for global

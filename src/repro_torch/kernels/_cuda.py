@@ -15,6 +15,7 @@ went through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -169,8 +170,18 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    """The current stream of ``t``'s device, as an integer handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of ``t``'s device, as an integer handle (the raw
+    call: building a ``torch.cuda.Stream`` costs microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def device_guard(t: torch.Tensor):
+    """Make ``t``'s device current for a launch (the entry points launch on
+    the calling thread's current device); no guard when it already is."""
+    idx = t.get_device()
+    if idx == torch._C._cuda_getDevice():
+        return contextlib.nullcontext()
+    return torch.cuda.device(idx)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

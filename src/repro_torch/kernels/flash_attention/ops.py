@@ -71,7 +71,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _cuda.library()
-    with torch.cuda.device(q.device):
+    with _cuda.device_guard(q):
         _cuda.count_launch("flash_attention")
         rc = getattr(lib, _ENTRY[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,

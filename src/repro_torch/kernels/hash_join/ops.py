@@ -67,7 +67,7 @@ def hash_probe_cuda(slot_keys: Sequence[torch.Tensor], slot_idx: torch.Tensor,
     lib = _cuda.library()
     vals_p = (ctypes.c_void_p * k)(*[v.data_ptr() for v in val_cols])
     keys_p = (ctypes.c_void_p * k)(*[s.data_ptr() for s in slot_keys])
-    with torch.cuda.device(device):
+    with _cuda.device_guard(idx):
         _cuda.count_launch("hash_probe")
         rc = lib.repro_hash_probe(vals_p, keys_p, slot_idx.data_ptr(), k,
                                   table, int(max_probes), n, idx.data_ptr(),

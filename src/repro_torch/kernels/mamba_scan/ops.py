@@ -58,7 +58,7 @@ def mamba_scan_cuda(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
     if Bt * d == 0:
         return y, hT
     lib = _cuda.library()
-    with torch.cuda.device(dev):
+    with _cuda.device_guard(y):
         _cuda.count_launch("mamba_scan")
         rc = lib.repro_mamba_scan(
             delta.data_ptr(), x.data_ptr(), B.data_ptr(), C.data_ptr(),

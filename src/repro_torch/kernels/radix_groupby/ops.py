@@ -2,19 +2,24 @@
 CUDA tensor, the plain torch version on a CPU tensor.
 
 It replaces the TPU kernel ``repro/kernels/radix_groupby/kernel.py``:
-``_radix_groupby_kernel`` / ``radix_groupby_pallas``.  Bound on the card:
-bytes (ids and values read once, sums and counts written once).  The
-design moves rows into 256-id partitions with a stable counting sort and
-reduces each partition in row order, so sums are bit-identical from run to
-run (``csrc/grouped_sum.cuh``).  Its time, launches and bound on the H100
-are in PERF.md."""
+``_radix_groupby_kernel`` / ``radix_groupby_pallas``, which reduced each
+row tile with a one-hot matmul.  Bound on the card: bytes (ids and values
+read once, sums and counts written once), below one launch's cost at the
+SSB shapes.  A small id space (Q4.1: 147 cells) takes the direct route:
+one cooperative launch in which warps add their rows into shared partials
+and the block partials are summed in a fixed order after a grid-wide
+barrier.  A large one takes the partitioned route: a stable counting sort
+into 256-id partitions, then each partition's rows in row order.  No float
+atomics, so sums are bit-identical from run to run
+(``csrc/grouped_sum.cuh``, ``kernels/_grouped_sum.py``).  Its time,
+launches and bound on the H100 are in PERF.md."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
 
-from .. import _cuda, _grouped_sum
+from .. import _grouped_sum
 from .ref import radix_groupby_ref
 
 
@@ -38,26 +43,4 @@ def radix_groupby_cuda(ids: torch.Tensor, values: torch.Tensor, n_groups: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/radix_groupby.cu``: ids int32 [N], values float32
     [N, C], both contiguous CUDA tensors."""
-    device = ids.device
-    _cuda.require(ids, "ids", torch.int32, 1, device)
-    _cuda.require(values, "values", torch.float32, 2, device)
-    n, c = values.shape
-    if ids.shape[0] != n:
-        raise ValueError(f"ids has {ids.shape[0]} rows, values {n}")
-    n_groups = int(n_groups)
-    sums = torch.empty((n_groups, c), dtype=torch.float32, device=device)
-    counts = torch.empty(n_groups, dtype=torch.float32, device=device)
-    if n_groups == 0:
-        return sums, counts
-    p = _grouped_sum.plan(n, n_groups, c + 1)
-    iws, fws = _grouped_sum.workspace(p, device)
-    lib = _cuda.library()
-    with torch.cuda.device(device):
-        _cuda.count_launch("radix_groupby")
-        rc = lib.repro_radix_groupby(ids.data_ptr(), values.data_ptr(), n, c,
-                                     n_groups, p.rows_per_block, p.n_slices,
-                                     iws.data_ptr(), fws.data_ptr(),
-                                     sums.data_ptr(), counts.data_ptr(),
-                                     _cuda.stream_ptr(ids))
-    _cuda.check(rc, "radix_groupby")
-    return sums, counts
+    return _grouped_sum.launch("radix_groupby", ids, values, n_groups, True)

@@ -2,16 +2,20 @@
 tensor, the plain torch version on a CPU tensor.
 
 It replaces the TPU kernel ``repro/kernels/segment_sum/kernel.py``:
-``_segment_sum_kernel`` / ``segment_sum_pallas``.  Bound on the card:
-bytes (ids and values read once, sums written once).  It runs the radix
-groupby's deterministic partitioned reduction without the counts column
-(``csrc/grouped_sum.cuh``), so sums are bit-identical from run to run.  Its
-time, launches and bound on the H100 are in PERF.md."""
+``_segment_sum_kernel`` / ``segment_sum_pallas``, which reduced each row
+tile with a one-hot matmul.  Bound on the card: bytes (ids and values read
+once, sums written once), below one launch's cost at the SSB shapes.  It
+runs the radix groupby's deterministic grouped sum without the counts
+column (``csrc/grouped_sum.cuh``): the direct route, one launch, for a
+small id space (Q1.1's global sum, G = 1: each warp sums its 32-row
+batches over the lanes), the partitioned route for a large one (the sort
+route's segments).  No float atomics, so sums are bit-identical from run
+to run.  Its time, launches and bound on the H100 are in PERF.md."""
 from __future__ import annotations
 
 import torch
 
-from .. import _cuda, _grouped_sum
+from .. import _grouped_sum
 from .ref import segment_sum_ref
 
 
@@ -33,24 +37,5 @@ def segment_sum_cuda(seg_ids: torch.Tensor, values: torch.Tensor,
                      n_groups: int) -> torch.Tensor:
     """Launch ``csrc/segment_sum.cu``: seg_ids int32 [N], values float32
     [N, C], both contiguous CUDA tensors."""
-    device = seg_ids.device
-    _cuda.require(seg_ids, "seg_ids", torch.int32, 1, device)
-    _cuda.require(values, "values", torch.float32, 2, device)
-    n, c = values.shape
-    if seg_ids.shape[0] != n:
-        raise ValueError(f"seg_ids has {seg_ids.shape[0]} rows, values {n}")
-    n_groups = int(n_groups)
-    out = torch.empty((n_groups, c), dtype=torch.float32, device=device)
-    if n_groups == 0 or c == 0:
-        return out.zero_()
-    p = _grouped_sum.plan(n, n_groups, c)
-    iws, fws = _grouped_sum.workspace(p, device)
-    lib = _cuda.library()
-    with torch.cuda.device(device):
-        _cuda.count_launch("segment_sum")
-        rc = lib.repro_segment_sum(seg_ids.data_ptr(), values.data_ptr(), n,
-                                   c, n_groups, p.rows_per_block, p.n_slices,
-                                   iws.data_ptr(), fws.data_ptr(),
-                                   out.data_ptr(), _cuda.stream_ptr(seg_ids))
-    _cuda.check(rc, "segment_sum")
-    return out
+    return _grouped_sum.launch("segment_sum", seg_ids, values, n_groups,
+                               False)[0]

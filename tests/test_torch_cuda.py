@@ -85,6 +85,78 @@ def test_segment_sum_kernel_matches_plain(dev, n, c, g):
     assert _same(out, segment_sum(ids, vals, g))
 
 
+# Both routes of the grouped sums (kernels/_grouped_sum.py): at the direct
+# route's limit and one group above it, C = 0 and C = 32, all rows padding
+# (ids -1 and >= n_groups), and fewer rows than one block's range.  Integer
+# values: byte-identical to the plain version; fractional values: a second
+# launch bit-identical to the first.
+@pytest.mark.parametrize("op,n,c,g,pad,direct", [
+    ("groupby", 5_000, 1, 768, 0.1, True),        # at the limit
+    ("groupby", 5_000, 1, 769, 0.1, False),       # one group above
+    ("segsum", 5_000, 1, 1_536, 0.1, True),
+    ("segsum", 5_000, 1, 1_537, 0.1, False),
+    ("groupby", 20_000, 0, 1_536, 0.1, True),     # counts only
+    ("groupby", 20_000, 0, 1_537, 0.1, False),
+    ("groupby", 30_000, 32, 46, 0.1, True),       # 32 columns + counts
+    ("groupby", 30_000, 32, 47, 0.1, False),
+    ("segsum", 30_000, 32, 48, 0.1, True),
+    ("segsum", 30_000, 32, 49, 0.1, False),
+    ("groupby", 96_000, 1, 147, 1.0, True),       # all rows padding
+    ("segsum", 112_000, 1, 1, 1.0, True),
+    ("groupby", 70_000, 2, 5_000, 1.0, False),
+    ("groupby", 100, 2, 10, 0.1, True),           # under one block's rows
+    ("segsum", 100, 1, 1, 0.0, True),
+    ("segsum", 700_000, 3, 40, 0.05, True),       # 264 blocks, long ranges
+])
+def test_grouped_sum_routes_match_plain(dev, op, n, c, g, pad, direct):
+    from repro_torch.kernels import _grouped_sum as gs
+    p = gs.plan(n, g, c, op == "groupby")
+    assert p.direct == direct
+    ids = RNG.integers(0, g, n).astype(np.int32)
+    drop = RNG.random(n) < pad
+    ids[drop] = np.where(RNG.random(int(drop.sum())) < 0.5, -1,
+                         g + RNG.integers(0, 3, int(drop.sum())))
+    ids = torch.from_numpy(ids).to(dev)
+    exact = torch.from_numpy(RNG.integers(0, 64, (n, c)).astype(np.float32)
+                             ).to(dev)
+    frac = torch.from_numpy(RNG.random((n, c)).astype(np.float32)).to(dev)
+    kernel, plain = ((radix_groupby, radix_groupby_ref) if op == "groupby"
+                     else (segment_sum, segment_sum_ref))
+    name = "radix_groupby" if op == "groupby" else "segment_sum"
+
+    def run(vals):
+        out = kernel(ids, vals, g)
+        return out if op == "groupby" else (out,)
+    reset_launches()
+    got, again = run(exact), run(exact)
+    assert launch_counts()[name] == 2
+    want = plain(ids, exact, g)
+    want = want if op == "groupby" else (want,)
+    for x, y, w in zip(got, again, want):
+        assert _same(x, w) and _same(x, y)
+    for x, y in zip(run(frac), run(frac)):
+        assert _same(x, y)
+
+
+def test_grouped_sum_on_two_streams(dev):
+    """Each stream has its own direct-route scratch: calls queued on the
+    default stream and on a side stream together give the same sums."""
+    n, g = 96_000, 147
+    ids = torch.from_numpy(RNG.integers(-1, g, n).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(RNG.random((n, 1)).astype(np.float32)).to(dev)
+    want = radix_groupby(ids, vals, g)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for _ in range(4):
+        outs.append(radix_groupby(ids, vals, g))
+        with torch.cuda.stream(side):
+            outs.append(radix_groupby(ids, vals, g))
+    torch.cuda.synchronize(dev)
+    for sums, counts in outs:
+        assert _same(sums, want[0]) and _same(counts, want[1])
+
+
 def test_sort_route_groupby_over_4m_keys(dev, monkeypatch):
     """A keyed sum over 4M distinct keys on the sort route: the torch
     backend (segment-sum kernel) against torch_cpu, exact on integer

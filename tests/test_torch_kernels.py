@@ -225,23 +225,66 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
 
 
 def test_grouped_sum_plan_sizes():
-    """The workspace plan the CUDA kernels index into: one int32 region of
-    histogram + partition starts + two row arrays, one float region of
-    slice partials; shapes alone fix the slice count (determinism)."""
+    """The launch plan the CUDA kernels follow.  Direct route (small id
+    space, one launch): the row range a block takes is fixed by n alone,
+    and the grid never exceeds two blocks per SM of 132, so it is
+    co-resident.  Partitioned route (large id space): an int32 region of
+    histogram + partition starts + two row arrays and a float region of
+    slice partials, for any int32 group count.  Shapes alone fix every count
+    (determinism)."""
     from repro_torch.kernels import _grouped_sum as gs
-    p = gs.plan(96_000, 147, 2)
-    assert (p.n_parts, p.g_pad, p.n_slices) == (1, 256, 64)
-    assert p.int_words == p.n_blocks * 1 + 2 + 2 * 96_000
-    assert p.float_words == 64 * 256 * 2
-    big = gs.plan(4 << 20, 1 << 20, 2)
-    assert big.n_parts == 4096 and big.n_slices == 1
+    q41 = gs.plan(96_000, 147, 1, True)            # SSB Q4.1
+    q11 = gs.plan(112_000, 1, 1, False)            # SSB Q1.1
+    for p, n, cells in ((q41, 96_000, 147 * 2), (q11, 112_000, 1)):
+        assert p.direct
+        assert p.n_blocks == -(-n // p.rows_per_block)
+        assert 132 <= p.n_blocks <= gs.TARGET_BLOCKS
+        assert p.rows_per_block % (32 * gs.DIRECT_WARPS) == 0
+        assert (p.int_words, p.float_words) == (0, p.n_blocks * cells)
+        # the row ranges depend on n, not on the groups or columns
+        assert gs.plan(n, 700, 0, True).rows_per_block == p.rows_per_block
+    assert (q41.rows_per_block, q41.n_blocks) == (512, 188)
+    assert gs.plan(96_000, 147, 1, True) is q41      # cached by shape
+    # fewer rows than one block's range: one block, no scratch
+    tiny = gs.plan(100, 5, 1, True)
+    assert tiny.direct and tiny.n_blocks == 1
+    assert tiny.int_words + tiny.float_words == 0
+    # many rows: longer warp ranges, never more blocks than TARGET_BLOCKS,
+    # so the block partials fit the scratch of TARGET_BLOCKS x DIRECT_FLOATS
+    for n in (540_672, 540_673, 10_000_000, (1 << 31) - 1):
+        p = gs.plan(n, 1_536, 0, True)
+        assert p.n_blocks <= gs.TARGET_BLOCKS
+        assert p.n_blocks * p.rows_per_block >= n
+        assert p.float_words <= gs.TARGET_BLOCKS * gs.DIRECT_FLOATS
+    # the route boundary, on both sides: a warp's partial of groups x cols
+    # in 1536 floats
+    for g, c, counts, direct in ((768, 1, True, True), (769, 1, True, False),
+                                 (1_536, 1, False, True),
+                                 (1_537, 1, False, False),
+                                 (1_536, 0, True, True),
+                                 (1_537, 0, True, False),
+                                 (46, 32, True, True), (47, 32, True, False),
+                                 (48, 32, False, True),
+                                 (49, 32, False, False)):
+        p = gs.plan(5_000, g, c, counts)
+        assert gs.is_direct(g, c, counts) == p.direct == direct
+    # partitioned: many partitions, 2^20 cells
+    big = gs.plan(4 << 20, 1 << 20, 1, True)
+    assert not big.direct and big.n_parts == 4096 and big.n_slices == 1
     assert big.n_blocks * big.n_parts <= gs.MAX_HIST
+    assert big.int_words == (big.n_blocks * 4096 + 4097 + 2 * (4 << 20))
+    assert big.float_words == 1 << 21
     # past 12288 partitions the block counters move to global memory; the
     # id space is bounded by int32 alone
-    wide = gs.plan(4_000_000, 4_000_000, 1)
+    wide = gs.plan(4_000_000, 4_000_000, 1, False)
     assert wide.n_parts == 15_625 and wide.g_pad == 15_625 * 256
     assert wide.n_blocks * wide.n_parts <= gs.MAX_HIST
-    huge = gs.plan(1_000, (1 << 31) - 1, 1)
+    huge = gs.plan(1_000, (1 << 31) - 1, 1, False)
     assert huge.n_blocks == 1 and huge.rows_per_block >= 1_000
-    with pytest.raises(ValueError):
-        gs.plan(10, 4, gs.MAX_COLS + 2)
+    # slices fill the card where partitions are few, not past the rows
+    assert gs.plan(1 << 20, 4096, 1, False).n_slices == 17
+    assert gs.plan(4_000_000, 300, 32, True).n_slices == 132
+    assert gs.plan(10, 5_000, 2, True).n_slices == 1
+    assert gs.plan(10, 4, gs.MAX_COLS, True).direct
+    with pytest.raises(ValueError, match="value columns"):
+        gs.plan(10, 4, gs.MAX_COLS + 1, False)
