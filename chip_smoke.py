@@ -8,12 +8,14 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Setup: torch/CUDA versions, the card's name and power limit, and the
    build of every ``src/repro_torch/csrc/*.cu`` kernel (timed), with each
-   flash entry point's registers and spills as ``ptxas`` reports them.
+   flash and selective-scan entry point's registers and spills as
+   ``ptxas`` reports them.
 2. Kernels: each hand-written kernel against its plain torch version on the
    card, at the shapes its main path gives it (SSB scale factor 1 for the
    ETL kernels; stablelm-3b and falcon-mamba-7b prefill for flash attention
    and the selective scan; flash on both of its routes, bf16 on the tensor
-   cores and fp32 in FMAs) plus small cases for the options those paths do
+   cores and fp32 in FMAs; the scan on bf16 and fp32 delta/x, with its
+   lane splits timed) plus small cases for the options those paths do
    not use, twice (bit-identical), with its median time (CUDA events), its
    bound, the plain version's time and a PyTorch library call as a
    yardstick the port never calls.  For each grouped-sum case, the device
@@ -64,6 +66,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 #: dense bf16 tensor-core peak: the least time for attention's products
 PEAK_BF16_S = 989e12
+#: exp2 on the special-function units: 16 results a clock an SM (CUDA C++
+#: Programming Guide, arithmetic throughput, compute capability 9.0) on 132
+#: SMs at the 1.98 GHz boost clock; the selective scan takes one a state
+PEAK_EX2_S = 132 * 16 * 1.98e9
 
 SF1 = dict(lineorder_rows=6_000_000, customers=30_000, suppliers=2_000,
            parts=200_000, seed=42)
@@ -154,6 +160,27 @@ def flash_ptxas(build_log: str) -> None:
         if route.startswith("bf16") and hd in (80, 128) and spills:
             raise AssertionError(f"flash {route} hd {hd} spills {spills} "
                                  f"bytes")
+
+
+def scan_ptxas(build_log: str) -> None:
+    """Print each selective-scan instance's registers and spills (delta/x
+    dtype, state bucket, lanes a channel); none may spill (the wrapper
+    picks the lanes from the shape, so every instance is on some path)."""
+    rows = []
+    for name, (regs, spills) in ptxas_entries(build_log).items():
+        m = re.search(r"mamba_scan_kernelI([ft])Li(\d+)ELi(\d+)E", name)
+        if m:
+            rows.append(("bf16" if m.group(1) == "t" else "fp32",
+                         int(m.group(2)), int(m.group(3)), regs, spills))
+    if not rows:
+        log("  scan ptxas: no report (the library was already built)")
+        return
+    for dtype, ns, lanes, regs, spills in sorted(rows):
+        log(f"  scan ptxas: {dtype} N<={ns} lanes {lanes}: {regs} registers "
+            f"a thread, {spills} bytes of spills")
+        if spills:
+            raise AssertionError(f"mamba_scan {dtype} N<={ns} lanes {lanes} "
+                                 f"spills {spills} bytes")
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -410,7 +437,8 @@ def phase_segment_sum(rng) -> dict:
 FLASH_TOL_BF16 = (2e-2, 2e-2)
 #: fp32 flash attention: fp32 sums in other orders (the CPU tests' tolerance)
 FLASH_TOL_F32 = (2e-4, 2e-5)
-#: the fp32 scan: fused multiply-adds and the N-state sum in another order;
+#: the scan (fp32 arithmetic on either input dtype): fused multiply-adds,
+#: exp as ex2.approx of a prescaled A, the N-state sum in another order;
 #: the state is a contraction, so the gaps do not grow with T
 SCAN_TOL = (1e-4, 1e-4)
 
@@ -511,7 +539,8 @@ def phase_flash_attention(gen) -> dict:
     return main
 
 
-def _scan_inputs(gen, Bt, T, d, N, zero_h0):
+def _scan_inputs(gen, Bt, T, d, N, zero_h0, dtype=torch.float32):
+    """delta and x in ``dtype`` (as the model passes them), the rest fp32."""
     dev = gen.device
 
     def rand(*shape):
@@ -520,12 +549,14 @@ def _scan_inputs(gen, Bt, T, d, N, zero_h0):
     A = -rand(d, N).abs() - 0.05
     h0 = (torch.zeros((Bt, d, N), device=dev) if zero_h0
           else rand(Bt, d, N))
-    return delta, rand(Bt, T, d), rand(Bt, T, N), rand(Bt, T, N), A, h0
+    return (delta.to(dtype), rand(Bt, T, d).to(dtype), rand(Bt, T, N),
+            rand(Bt, T, N), A, h0)
 
 
-def _scan_case(label, gen, Bt, T, d, N, zero_h0=False) -> dict:
+def _scan_case(label, gen, Bt, T, d, N, zero_h0=False,
+               dtype=torch.float32) -> dict:
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
-    args = _scan_inputs(gen, Bt, T, d, N, zero_h0)
+    args = _scan_inputs(gen, Bt, T, d, N, zero_h0, dtype)
     y, hT = mamba_scan(*args, impl="cuda")
     y2, hT2 = mamba_scan(*args, impl="cuda")
     y_r, hT_r = mamba_scan_ref(*args)
@@ -534,38 +565,96 @@ def _scan_case(label, gen, Bt, T, d, N, zero_h0=False) -> dict:
         raise AssertionError(f"mamba_scan[{label}]: two launches differ")
     err = max(_check_close(f"mamba_scan[{label}] y", y, y_r, SCAN_TOL),
               _check_close(f"mamba_scan[{label}] hT", hT, hT_r, SCAN_TOL))
+    if dtype == torch.bfloat16:
+        y_w, hT_w = mamba_scan(args[0].float(), args[1].float(), *args[2:],
+                               impl="cuda")
+        if not (same(y, y_w) and same(hT, hT_w)):
+            raise AssertionError(f"mamba_scan[{label}]: bf16 inputs differ "
+                                 f"from the widened ones")
+    del y2, hT2, y_r, hT_r
     ms = time_ms(lambda: mamba_scan(*args, impl="cuda"))
     plain_ms = time_ms(lambda: mamba_scan_ref(*args), iters=3, warmup=1)
-    nbytes = 4 * (sum(t.numel() for t in args) + y.numel() + hT.numel())
-    bnd, by = bound_ms(nbytes, 0.0)
+    # bytes at the dtypes passed (inputs read once, y and hT written once)
+    # against one exp2 a (b, t, c, n)
+    nbytes = sum(t.numel() * t.element_size() for t in args) + 4 * (
+        y.numel() + hT.numel())
+    bnd, by = bound_ms(nbytes, Bt * T * d * N, PEAK_EX2_S)
     log(f"  mamba_scan[{label}]: Bt={Bt} T={T} d={d} N={N} "
-        f"max_abs_err={err:.3g} tol={SCAN_TOL} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms=none bound_ms={bnd:.4f} ({by}) "
-        f"GB/s={nbytes / ms / 1e6:.1f} bit_stable=True")
+        f"{str(dtype).split('.')[-1]} max_abs_err={err:.3g} tol={SCAN_TOL} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none "
+        f"bound_ms={bnd:.4f} ({by}) GB/s={nbytes / ms / 1e6:.1f} "
+        f"share_of_bound={bnd / ms:.4f} bit_stable=True"
+        + (" same_as_widened=True" if dtype == torch.bfloat16 else ""))
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
                 bound_by=by, max_abs_err=err)
 
 
+def scan_lanes(gen, Bt, T, d, N, dtype) -> dict:
+    """The kernel with a channel's states split over 1, 2 and 4 lanes at
+    one shape: the final states bit-identical, y within SCAN_TOL of the
+    plain version; the median time of each."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_ref
+    from repro_torch.kernels.mamba_scan.ops import (default_lanes,
+                                                    mamba_scan_cuda)
+    args = _scan_inputs(gen, Bt, T, d, N, True, dtype)
+    y_r, _ = mamba_scan_ref(*args)
+    out, first = {}, None
+    for lanes in (1, 2, 4):
+        y, hT = mamba_scan_cuda(*args, lanes=lanes)
+        if first is None:
+            first = hT
+        elif not same(hT, first):
+            raise AssertionError(f"mamba_scan lanes {lanes}: final states "
+                                 f"differ from lanes 1")
+        _check_close(f"mamba_scan lanes {lanes}", y, y_r, SCAN_TOL)
+        del y, hT
+        out[lanes] = time_ms(lambda: mamba_scan_cuda(*args, lanes=lanes))
+    log(f"  mamba_scan lanes a channel ({str(dtype).split('.')[-1]}, Bt={Bt} "
+        f"T={T} d={d} N={N}): "
+        + ", ".join(f"{k}: {v:.4f} ms" for k, v in out.items())
+        + f"; the wrapper takes {default_lanes(Bt, d)}")
+    return out
+
+
 def phase_mamba_scan(gen) -> dict:
+    """The scan at the falcon-mamba-7b prefill shape (4 prompts of 2048
+    tokens, d_inner 8192, N 16) with bf16 delta/x, as the model passes
+    them (the kernels line's row), and with fp32 ones (fields of their
+    own), each lane split timed there and at 1 prompt; then ragged and
+    small cases and the bit-identical continuation in both dtypes."""
     from repro_torch.kernels.mamba_scan import mamba_scan
-    # falcon-mamba-7b prefill: 4 prompts of 2048 tokens, d_inner 8192, N 16
-    main = _scan_case("falcon-mamba-7b prefill", gen, 4, 2048, 8192, 16,
-                      zero_h0=True)
-    _scan_case("ragged T/d", gen, 3, 333, 1000, 16)
-    _scan_case("smoke N=8", gen, 2, 100, 130, 8)
-    # continuation: [0, T1) then [T1, T) from its hT is the full scan
-    dl, x, Bm, Cm, A, h0 = _scan_inputs(gen, 2, 512, 1024, 16, True)
-    y, hT = mamba_scan(dl, x, Bm, Cm, A, h0, impl="cuda")
-    halves = (slice(0, 200), slice(200, 512))
-    y1, h1 = mamba_scan(*(t[:, halves[0]].contiguous() for t in
-                          (dl, x, Bm, Cm)), A, h0, impl="cuda")
-    y2, h2 = mamba_scan(*(t[:, halves[1]].contiguous() for t in
-                          (dl, x, Bm, Cm)), A, h1, impl="cuda")
-    if not (same(torch.cat([y1, y2], 1), y) and same(h2, hT)):
-        raise AssertionError("mamba_scan: the two halves differ from the "
-                             "full scan")
-    log("  mamba_scan[continuation]: Bt=2 T=200+312 d=1024 N=16 "
-        "bit-identical to the full scan")
+    bf16, f32 = torch.bfloat16, torch.float32
+    shape = (4, 2048, 8192, 16)
+    main = _scan_case("falcon-mamba-7b prefill, bf16 delta/x", gen, *shape,
+                      zero_h0=True, dtype=bf16)
+    fp32 = _scan_case("falcon-mamba-7b prefill, fp32 delta/x", gen, *shape,
+                      zero_h0=True, dtype=f32)
+    main.update({f"fp32_{k}": fp32[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "max_abs_err")})
+    # the lane split: the wrapper's choice (ops.default_lanes) at falcon's
+    # width with 4 prompts and with 1
+    main["lanes_ms"] = scan_lanes(gen, *shape, bf16)
+    main["fp32_lanes_ms"] = scan_lanes(gen, *shape, f32)
+    main["one_prompt_lanes_ms"] = scan_lanes(gen, 1, *shape[1:], bf16)
+    for dtype in (bf16, f32):
+        name = str(dtype).split(".")[-1]
+        _scan_case(f"ragged T/d {name}", gen, 3, 333, 1000, 16, dtype=dtype)
+        _scan_case(f"smoke N=8 {name}", gen, 2, 100, 130, 8, dtype=dtype)
+        _scan_case(f"odd d N=5 {name}", gen, 2, 70, 131, 5, dtype=dtype)
+        # continuation: [0, T1) then [T1, T) from its hT is the full scan
+        dl, x, Bm, Cm, A, h0 = _scan_inputs(gen, 2, 512, 1024, 16, True,
+                                            dtype)
+        y, hT = mamba_scan(dl, x, Bm, Cm, A, h0, impl="cuda")
+        halves = (slice(0, 200), slice(200, 512))
+        y1, h1 = mamba_scan(*(t[:, halves[0]].contiguous() for t in
+                              (dl, x, Bm, Cm)), A, h0, impl="cuda")
+        y2, h2 = mamba_scan(*(t[:, halves[1]].contiguous() for t in
+                              (dl, x, Bm, Cm)), A, h1, impl="cuda")
+        if not (same(torch.cat([y1, y2], 1), y) and same(h2, hT)):
+            raise AssertionError(f"mamba_scan {name}: the two halves differ "
+                                 f"from the full scan")
+        log(f"  mamba_scan[continuation {name}]: Bt=2 T=200+312 d=1024 N=16 "
+            f"bit-identical to the full scan")
     return main
 
 
@@ -879,6 +968,7 @@ def main() -> int:
         f"(nvcc {_cuda.build_seconds:.1f}s) from {_cuda.CSRC}")
     log(f"ptxas: {ptxas_summary(_cuda.build_log)}")
     flash_ptxas(_cuda.build_log)
+    scan_ptxas(_cuda.build_log)
     bk = resolve_backend("torch")
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda")
@@ -947,6 +1037,11 @@ def main() -> int:
                                 "at the same shape; its bound is fp32 FMAs "
                                 "at 67 TFLOP/s")
         if name == "mamba_scan":
+            row.update({k: v for k, v in m.items()
+                        if k.startswith("fp32_") or k.endswith("lanes_ms")})
+            row["fp32_note"] = ("the same kernel on fp32 delta/x at the same "
+                                "shape; the row's own numbers are for bf16 "
+                                "delta/x, as the model passes them")
             row["library_note"] = ("none: no single PyTorch call computes "
                                    "the selective scan")
         kernels.append(row)

@@ -52,8 +52,8 @@ _SIGNATURES = {
     "repro_segment_sum": (_P, _P, _I64, _I, _I, _I64, _I, _P, _P, _P, _P),
     "repro_flash_attention_fp32": _FLASH,
     "repro_flash_attention_bf16": _FLASH,
-    "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _P),
+    "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _P),
 }
 
 _lock = threading.Lock()

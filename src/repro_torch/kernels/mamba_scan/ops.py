@@ -2,27 +2,45 @@
 CUDA tensor, the plain torch version on a CPU tensor.
 
 It replaces the TPU kernel ``repro/kernels/mamba_scan/kernel.py``:
-``_mamba_scan_kernel`` / ``mamba_scan_pallas``.  Bound on the card: bytes
-(delta, x and y stream through once; the [d, N] outer products stay in
-registers); its time, launches and bound on the H100 are in PERF.md."""
+``_mamba_scan_kernel`` / ``mamba_scan_pallas``.  Bound on the card: one
+exp per (b, t, c, n) on the special-function units, above the bytes of
+delta, x and y (the [d, N] outer products stay in registers); its time,
+launches and bound on the H100 are in PERF.md."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _cuda
 from .ref import mamba_scan_ref
 
-#: most state values a thread keeps in registers (csrc/mamba_scan.cu)
+#: most state values a channel keeps in registers (csrc/mamba_scan.cu)
 MAX_STATE = 32
+#: threads a channel's states can be split over
+LANES = (1, 2, 4)
+#: channels (Bt * d) from which one lane a channel keeps the H100 busy: at
+#: falcon-mamba-7b's width, 1 lane was fastest from Bt 4 (32,768 channels)
+#: up, 2 at Bt 2 and 4 at Bt 1 (PERF.md)
+FILL_CHANNELS = 32768
+
+
+def default_lanes(Bt: int, d: int) -> int:
+    """The fewest lanes a channel that give the card FILL_CHANNELS
+    threads, at most 4."""
+    for lanes in LANES[:-1]:
+        if Bt * d * lanes >= FILL_CHANNELS:
+            return lanes
+    return LANES[-1]
 
 
 def mamba_scan(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
                C: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
                impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused selective scan.  delta, x: [Bt, T, d]; B, C: [Bt, T, N];
-    A: [d, N]; h0: [Bt, d, N] -> (y [Bt, T, d], hT [Bt, d, N]), fp32.
+    """Fused selective scan.  delta, x: [Bt, T, d], both float32 or both
+    bfloat16 (widened to float32, which is exact); B, C: [Bt, T, N];
+    A: [d, N]; h0: [Bt, d, N], float32 -> (y [Bt, T, d], hT [Bt, d, N]),
+    float32.
 
     impl: 'auto' (the kernel for CUDA tensors, the plain version for CPU
     tensors), 'cuda' (the kernel; anything else raises) or 'reference' (the
@@ -35,21 +53,33 @@ def mamba_scan(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
 
 
 def mamba_scan_cuda(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
-                    C: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
+                    C: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
+                    lanes: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/mamba_scan.cu`` on contiguous float32 CUDA tensors."""
+    """Launch ``csrc/mamba_scan.cu`` on contiguous CUDA tensors: delta and
+    x float32 or bfloat16, the rest float32.  ``lanes``: threads a
+    channel's states are split over (``LANES``; by default
+    ``default_lanes``)."""
     Bt, T, d = delta.shape
     N = B.shape[-1]
     if not 1 <= N <= MAX_STATE:
         raise ValueError(f"mamba_scan: state size {N} is outside 1..{MAX_STATE}"
                          f" (the states of a channel live in registers)")
+    if lanes is None:
+        lanes = default_lanes(Bt, d)
+    if lanes not in LANES:
+        raise ValueError(f"mamba_scan: lanes {lanes} is not one of {LANES}")
     f32 = torch.float32
     dev = delta.device
-    _cuda.require(delta, "delta", f32, 3)
-    want = {"x": (x, (Bt, T, d)), "B": (B, (Bt, T, N)), "C": (C, (Bt, T, N)),
-            "A": (A, (d, N)), "h0": (h0, (Bt, d, N))}
-    for name, (t, shape) in want.items():
-        _cuda.require(t, name, f32, len(shape), dev)
+    if delta.dtype not in (f32, torch.bfloat16):
+        raise TypeError(f"mamba_scan: delta must be float32 or bfloat16, got "
+                        f"{delta.dtype}")
+    _cuda.require(delta, "delta", delta.dtype, 3)
+    want = {"x": (x, (Bt, T, d), delta.dtype), "B": (B, (Bt, T, N), f32),
+            "C": (C, (Bt, T, N), f32), "A": (A, (d, N), f32),
+            "h0": (h0, (Bt, d, N), f32)}
+    for name, (t, shape, dtype) in want.items():
+        _cuda.require(t, name, dtype, len(shape), dev)
         if tuple(t.shape) != shape:
             raise ValueError(f"mamba_scan: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
@@ -63,6 +93,7 @@ def mamba_scan_cuda(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
         rc = lib.repro_mamba_scan(
             delta.data_ptr(), x.data_ptr(), B.data_ptr(), C.data_ptr(),
             A.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr(), Bt, T,
-            d, N, _cuda.stream_ptr(y))
+            d, N, int(delta.dtype == torch.bfloat16), lanes,
+            _cuda.stream_ptr(y))
     _cuda.check(rc, "mamba_scan")
     return y, hT

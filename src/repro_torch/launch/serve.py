@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..configs import ARCH_IDS, get_config
-from ..models.layers import NO_RULES
+from ..models.layers import NO_RULES, resolve_device
 from ..models.transformer import (decode_step, forward_prefill, grow_cache,
                                   init_params)
 from ..train.serve_step import sample_token
@@ -36,21 +36,6 @@ class Request:
     out_tokens: List[int] = field(default_factory=list)
     t_submit: float = 0.0
     t_done: float = 0.0
-
-
-def resolve_device(device: Optional[str]) -> torch.device:
-    """The card unless the caller asks for another device.  Never falls
-    back to the CPU."""
-    dev = torch.device(device or "cuda")
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("repro_torch serving runs on a CUDA card and "
-                               "none is available; pass device='cpu' "
-                               "(--device cpu) to run the plain versions on "
-                               "the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 class BatchedServer:

@@ -44,6 +44,21 @@ def dt(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller asks for another device.  Never falls
+    back to the CPU."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("repro_torch runs on a CUDA card and none is "
+                               "available; pass device='cpu' (serving: "
+                               "--device cpu) to run the plain versions on "
+                               "the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 # ---------------------------------------------------------------------------
 #  Normalization
 # ---------------------------------------------------------------------------

@@ -95,13 +95,11 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
     dt_in, B_in, C_in = torch.split(dbc, [dtr, N, N], dim=-1)
     delta = F.softplus(dt_in @ p["dt_proj"].to(cdt) + p["dt_bias"].to(cdt))
     A = -torch.exp(p["A_log"].float())                # [di, N]
-
-    delta32 = delta.float()
     B32 = B_in.float()
-    x32 = xconv.float()
     C32 = C_in.float()
 
     if T == 1:
+        delta32, x32 = delta.float(), xconv.float()
         dA = torch.exp(delta32[:, 0, :, None] * A)    # [B, di, N]
         dBx = (delta32[:, 0, :, None] * B32[:, 0, None, :]
                * x32[:, 0, :, None])
@@ -109,13 +107,18 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
         y = torch.einsum("bdn,bn->bd", h, C32[:, 0])[:, None]
         hT = h
     elif cfg.ssm_impl in ("auto", "cuda"):
-        y, hT = mamba_scan(delta32.contiguous(), x32.contiguous(),
+        # delta and x go in bf16 when that is the compute dtype: the kernel
+        # widens them in registers, bit for bit what widening first gives
+        kdt = cdt if cdt == torch.bfloat16 else torch.float32
+        y, hT = mamba_scan(delta.to(kdt).contiguous(),
+                           xconv.to(kdt).contiguous(),
                            B32.contiguous(), C32.contiguous(), A.contiguous(),
                            h0, impl=cfg.ssm_impl)
     elif cfg.ssm_impl != "reference":
         raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
     else:
         # chunked two-level scan (zero-padded steps leave h unchanged)
+        delta32, x32 = delta.float(), xconv.float()
         ch = min(cfg.ssm_chunk, T)
         hT = h0
         ys = []
@@ -131,7 +134,8 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
             ys.append(yc)
         y = torch.cat(ys, dim=1)
 
-    y = y.to(cdt) + x32.to(cdt) * p["D"].to(cdt)
+    # xconv is already in the compute dtype (the reference rounds x32 back)
+    y = y.to(cdt) + xconv * p["D"].to(cdt)
     y = y * F.silu(z)
     out = y @ p["out_proj"].to(cdt)
     new_state = (new_conv_state, hT) if (state is not None or T > 1) else None

@@ -261,19 +261,30 @@ def test_flash_attention_kernel_matches_plain(dev, B, Sq, Skv, Kh, G, hd,
                                atol=tol[1])
 
 
-# Selective scan: fp32 in both, within rtol 1e-4 / atol 1e-4 (the kernel
-# fuses multiply-adds and sums the N states in its own order).
+# Selective scan: delta and x in float32 or bfloat16 (the kernel widens
+# them exactly; the plain version widens first), the rest float32; within
+# rtol 1e-4 / atol 1e-4 of the plain version (the kernel fuses multiply-adds,
+# takes exp as ex2 of a prescaled A and sums the N states in its own order).
+def _scan_args(dev, Bt, T, d, N, dtype="float32", zero_h0=False):
+    delta = np.abs(RNG.normal(size=(Bt, T, d))).clip(0.01, 1.0)
+    h0 = (np.zeros((Bt, d, N)) if zero_h0
+          else RNG.normal(size=(Bt, d, N)))
+    args = [torch.from_numpy(a).to(dev, torch.float32) for a in (
+        delta, RNG.normal(size=(Bt, T, d)), RNG.normal(size=(Bt, T, N)),
+        RNG.normal(size=(Bt, T, N)), -np.abs(RNG.normal(size=(d, N))) - 0.05,
+        h0)]
+    args[0], args[1] = (a.to(getattr(torch, dtype)) for a in args[:2])
+    return args
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Bt,T,d,N", [(1, 16, 8, 4), (2, 48, 24, 8),
                                       (2, 100, 32, 16), (1, 64, 48, 16),
                                       (3, 333, 1000, 16), (2, 70, 130, 5),
                                       (1, 40, 64, 32)])
-def test_mamba_scan_kernel_matches_plain(dev, Bt, T, d, N):
+def test_mamba_scan_kernel_matches_plain(dev, Bt, T, d, N, dtype):
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
-    delta = np.abs(RNG.normal(size=(Bt, T, d))).clip(0.01, 1.0)
-    args = [torch.from_numpy(a).to(dev, torch.float32) for a in (
-        delta, RNG.normal(size=(Bt, T, d)), RNG.normal(size=(Bt, T, N)),
-        RNG.normal(size=(Bt, T, N)), -np.abs(RNG.normal(size=(d, N))) - 0.05,
-        RNG.normal(size=(Bt, d, N)))]
+    args = _scan_args(dev, Bt, T, d, N, dtype)
     reset_launches()
     y, hT = mamba_scan(*args)
     y2, hT2 = mamba_scan(*args)
@@ -284,17 +295,12 @@ def test_mamba_scan_kernel_matches_plain(dev, Bt, T, d, N):
     torch.testing.assert_close(hT, hT_ref, rtol=1e-4, atol=1e-4)
 
 
-def test_mamba_scan_kernel_continuation(dev):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_continuation(dev, dtype):
     """Two halves with hT -> h0 give the full scan, bit for bit."""
     from repro_torch.kernels.mamba_scan import mamba_scan
     Bt, T, d, N = 2, 200, 96, 16
-    delta = np.abs(RNG.normal(size=(Bt, T, d))).clip(0.01, 1.0)
-    dl, x, Bm, Cm = (torch.from_numpy(a).to(dev, torch.float32) for a in (
-        delta, RNG.normal(size=(Bt, T, d)), RNG.normal(size=(Bt, T, N)),
-        RNG.normal(size=(Bt, T, N))))
-    A = torch.from_numpy(-np.abs(RNG.normal(size=(d, N))) - 0.05).to(
-        dev, torch.float32)
-    h0 = torch.zeros((Bt, d, N), dtype=torch.float32, device=dev)
+    dl, x, Bm, Cm, A, h0 = _scan_args(dev, Bt, T, d, N, dtype, zero_h0=True)
     y, hT = mamba_scan(dl, x, Bm, Cm, A, h0)
     h = slice(0, 77), slice(77, T)
     y1, h1 = mamba_scan(*(t[:, h[0]].contiguous() for t in (dl, x, Bm, Cm)),
@@ -302,6 +308,45 @@ def test_mamba_scan_kernel_continuation(dev):
     y2, h2 = mamba_scan(*(t[:, h[1]].contiguous() for t in (dl, x, Bm, Cm)),
                         A, h1)
     assert _same(torch.cat([y1, y2], 1), y) and _same(h2, hT)
+
+
+@pytest.mark.parametrize("Bt,T,d,N,offset", [
+    (4, 300, 512, 16, 0),          # 16-byte copies
+    (2, 70, 130, 5, 0),            # 4-byte copies, padded states
+    (2, 45, 131, 8, 0),            # odd d: bf16 rows at odd offsets
+    (1, 33, 64, 16, 1)])           # inputs one element off alignment
+def test_mamba_scan_bf16_kernel_equals_widened(dev, Bt, T, d, N, offset):
+    """bf16 delta and x give, bit for bit, the kernel's result on
+    ``delta.float()`` and ``x.float()``."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    dl, x, Bm, Cm, A, h0 = _scan_args(dev, Bt, T, d, N, "bfloat16")
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        out = flat[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+    dl, x = shifted(dl), shifted(x)
+    y, hT = mamba_scan(dl, x, Bm, Cm, A, h0)
+    y_w, hT_w = mamba_scan(dl.float(), x.float(), Bm, Cm, A, h0)
+    assert _same(y, y_w) and _same(hT, hT_w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_lane_splits_agree(dev, dtype):
+    """1, 2 or 4 lanes a channel: the same state bits (each state's steps
+    are the same), y within the tolerance (the states' sum in another
+    tree)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_ref
+    from repro_torch.kernels.mamba_scan.ops import (default_lanes,
+                                                    mamba_scan_cuda)
+    args = _scan_args(dev, 2, 90, 200, 16, dtype)
+    y_ref, _ = mamba_scan_ref(*args)
+    runs = {lanes: mamba_scan_cuda(*args, lanes=lanes) for lanes in (1, 2, 4)}
+    for y, hT in runs.values():
+        assert _same(hT, runs[1][1])
+        torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    assert _same(runs[default_lanes(2, 200)][0], mamba_scan_cuda(*args)[0])
 
 
 def test_lm_kernels_refuse_what_they_do_not_take(dev):
@@ -321,3 +366,15 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="state size"):
         mamba_scan(z, z, s, s, torch.zeros((8, 33), device=dev),
                    torch.zeros((1, 8, 33), device=dev))
+    s = torch.zeros((1, 4, 16), device=dev)
+    A, h0 = torch.zeros((8, 16), device=dev), torch.zeros((1, 8, 16),
+                                                          device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):      # mixed dtypes
+        mamba_scan(z, z.bfloat16(), s, s, A, h0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mamba_scan(z.half(), z.half(), s, s, A, h0)
+    with pytest.raises(TypeError, match="float32"):       # B stays fp32
+        mamba_scan(z.bfloat16(), z.bfloat16(), s.bfloat16(), s, A, h0)
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan_cuda
+    with pytest.raises(ValueError, match="lanes"):
+        mamba_scan_cuda(z, z, s, s, A, h0, lanes=3)

@@ -122,6 +122,37 @@ def test_mamba_plain_continuation():
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("Bt,T,d,N", [(1, 16, 8, 4), (2, 40, 24, 5)])
+def test_mamba_plain_bf16_inputs_equal_widened(Bt, T, d, N):
+    """bf16 delta and x give the widened call's result bit for bit (the
+    widening is exact), and stand against the reference on the widened
+    inputs within the fp32 tolerance."""
+    arrs = [_t(a) for a in _scan_inputs(Bt, T, d, N)]
+    delta, x = (a.to(torch.bfloat16) for a in arrs[:2])
+    y, hT = mamba_scan(delta, x, *arrs[2:])
+    y_w, hT_w = mamba_scan(delta.float(), x.float(), *arrs[2:])
+    assert y.dtype == hT.dtype == torch.float32
+    assert torch.equal(y, y_w) and torch.equal(hT, hT_w)
+    y_ref, hT_ref = ref_scan(*(jnp.asarray(t.float().numpy())
+                               for t in (delta, x, *arrs[2:])))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(hT_ref), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_mamba_lanes_follow_the_channel_count():
+    """The kernel splits a channel's states over more lanes only when
+    Bt * d alone gives the card too few threads (ops.FILL_CHANNELS)."""
+    from repro_torch.kernels.mamba_scan.ops import FILL_CHANNELS, default_lanes
+    assert default_lanes(4, 8192) == 1                 # falcon, 4 prompts
+    assert default_lanes(16, 8192) == 1
+    assert default_lanes(2, 8192) == 2
+    assert default_lanes(1, 8192) == 4                 # one prompt
+    assert default_lanes(1, 100) == 4                  # at most 4
+    assert default_lanes(1, FILL_CHANNELS - 1) == 2
+
+
 # ------------------------------------------------------------ the selectors
 def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     q = _t(RNG.normal(size=(1, 8, 1, 2, 16)))

@@ -46,7 +46,7 @@ def _cfgs(arch, **kw):
 
 def _params(ref_cfg):
     p = ref_tf.init_params(ref_cfg, jax.random.PRNGKey(0))
-    return p, params_from_numpy(jax.tree.map(np.asarray, p))
+    return p, params_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
 
 
 def _tokens(cfg, B, S, seed=3):
@@ -166,6 +166,63 @@ def test_prefill_logits_and_cache_match_reference(arch, dtype):
         _close_tree(cache, want_cache, tol)
 
 
+# -------------------------------------------------------------- mamba block
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_block_matches_reference(dtype):
+    """The port's ``mamba_block`` on its kernel route (on the CPU, the
+    scan's plain version) and the reference's on the same numpy weights
+    and input."""
+    from repro.models.mamba import mamba_block as ref_block
+    from repro.models.layers import NO_RULES as REF_RULES
+    from repro_torch.models.layers import NO_RULES
+    from repro_torch.models.mamba import mamba_block
+    ref_cfg, cfg = _cfgs("falcon-mamba-7b", compute_dtype=dtype)
+    ref_p, p = _params(ref_cfg)
+    ref_blk = jax.tree.map(lambda a: a[0], ref_p["blocks"]["pos0"]["mamba"])
+    blk = {k: v[0] for k, v in p["blocks"]["pos0"]["mamba"].items()}
+    x = np.random.default_rng(4).normal(size=(2, 32, cfg.d_model)).astype(
+        np.float32)
+    want, (want_conv, want_h) = ref_block(jnp.asarray(x), ref_blk, ref_cfg,
+                                          REF_RULES)
+    got, (conv, h) = mamba_block(torch.from_numpy(x), blk, cfg, NO_RULES)
+    tol = FP32 if dtype == "float32" else BF16
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    np.testing.assert_allclose(_np(conv), _np(want_conv), **tol)
+    np.testing.assert_allclose(_np(h), _np(want_h), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_block_hands_the_scan_compute_dtype_inputs(dtype, monkeypatch):
+    """On the kernel route delta and x reach the scan in the compute dtype,
+    contiguous and with no float32 copies of bf16; the block's output is
+    bit for bit what widening them first gives."""
+    import repro_torch.models.mamba as mm
+    from repro_torch.models.layers import NO_RULES
+    _, cfg = _cfgs("falcon-mamba-7b", compute_dtype=dtype)
+    p = tf.init_params(cfg, seed=2, device="cpu")
+    blk = {k: v[0] for k, v in p["blocks"]["pos0"]["mamba"].items()}
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, 24, cfg.d_model)).astype(np.float32))
+    real, seen = mm.mamba_scan, []
+
+    def spy(delta, xs, *rest, widen=False, **kw):
+        seen.append((delta.dtype, xs.dtype, delta.is_contiguous(),
+                     xs.is_contiguous()))
+        if widen:
+            delta, xs = delta.float(), xs.float()
+        return real(delta, xs, *rest, **kw)
+
+    monkeypatch.setattr(mm, "mamba_scan", spy)
+    got, (_, h) = mm.mamba_block(x, blk, cfg, NO_RULES)
+    cdt = getattr(torch, dtype)
+    assert seen == [(cdt, cdt, True, True)]
+    monkeypatch.setattr(mm, "mamba_scan",
+                        lambda *a, **kw: spy(*a, widen=True, **kw))
+    want, (_, want_h) = mm.mamba_block(x, blk, cfg, NO_RULES)
+    assert torch.equal(got, want) and torch.equal(h, want_h)
+
+
 # ------------------------------------------------------------------- decode
 def _decode_parity(ref_cfg, cfg, prompt, steps, seed=5):
     ref_p, p = _params(ref_cfg)
@@ -276,11 +333,24 @@ def test_serve_main_runs_on_the_cpu(capsys):
 def test_params_from_numpy_copies_and_keeps_bf16():
     a = np.arange(6, dtype=np.float32).reshape(2, 3)
     b = np.asarray(jnp.asarray([1.5, -2.25, 3.0], jnp.bfloat16))
-    t = params_from_numpy({"x": {"a": a}, "b": b})
+    t = params_from_numpy({"x": {"a": a}, "b": b}, device="cpu")
     a[0, 0] = 99.0
     assert t["x"]["a"][0, 0] == 0.0                       # a copy, no alias
     assert t["b"].dtype == torch.bfloat16
     assert t["b"].float().tolist() == [1.5, -2.25, 3.0]
-    c = cache_from_numpy({"pos0": {"h": a}, "pos_idx": np.int32(7)})
+    c = cache_from_numpy({"pos0": {"h": a}, "pos_idx": np.int32(7)},
+                         device="cpu")
     assert c["pos_idx"] == 7 and isinstance(c["pos_idx"], int)
-    assert tensor_from_numpy(np.float32(2.0)).shape == ()
+    assert tensor_from_numpy(np.float32(2.0), device="cpu").shape == ()
+
+
+def test_conversion_defaults_to_the_card(monkeypatch):
+    """Without a device the trees go to the card, and without a card that
+    raises instead of landing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = np.zeros((2, 3), np.float32)
+    for fn, arg in ((tensor_from_numpy, a), (params_from_numpy, {"a": a}),
+                    (cache_from_numpy, {"pos0": {"h": a}, "pos_idx": 1})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(arg)
+        assert fn(arg, device="cpu") is not None
