@@ -8,8 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Setup: torch/CUDA versions, the card's name and power limit, and the
    build of every ``src/repro_torch/csrc/*.cu`` kernel (timed), with each
-   flash and selective-scan entry point's registers and spills as
-   ``ptxas`` reports them.
+   flash, selective-scan and hash-probe entry point's registers and spills
+   as ``ptxas`` reports them.
 2. Kernels: each hand-written kernel against its plain torch version on the
    card, at the shapes its main path gives it (SSB scale factor 1 for the
    ETL kernels; stablelm-3b and falcon-mamba-7b prefill for flash attention
@@ -20,13 +20,19 @@ Phases (any failure raises and the script exits non-zero):
    bound, the plain version's time and a PyTorch library call as a
    yardstick the port never calls.  For each grouped-sum case, the device
    kernels one call launches and their device time (``torch.profiler``);
-   at the main paths' shapes a call may launch at most two.
+   at the main paths' shapes a call may launch at most two.  The hash
+   probe runs against all four Q4.1 dimensions on its packed table, with
+   its device time taken after every other event time (a profiler session
+   slows later launches on the host).  fp32 flash attention runs
+   at every head dim.
 3. ETL main path: SSB scale factor 1 (seed 42) through the port's engines on
    backend ``torch`` with segment fusion: Q4.1 on OptimizedEngine and
    StreamingEngine, Q1.1 on OptimizedEngine.  Each run is checked against
    the query's float64 oracle and repeated (the second run must be
    byte-identical).  The launch counters are set to 0 just before the
    path's first run and read after its last.
+   Then a keyed Aggregate with 40 sum outputs, more than one grouped-sum
+   launch takes, on ``torch`` against ``torch_cpu``.
 4. LM serving path, once for stablelm-3b and once for falcon-mamba-7b at
    their full published widths (``configs/<arch>.CONFIG``, random weights
    from a seed): ``BatchedServer`` serves 8 requests (waves of 4, prompts of
@@ -142,9 +148,9 @@ def ptxas_summary(build_log: str) -> str:
 
 
 def flash_ptxas(build_log: str) -> None:
-    """Print each flash entry point's registers and spills; the bf16
-    tensor-core kernel must not spill at the head dims of the served
-    models (80: stablelm-3b; 128)."""
+    """Print each flash entry point's registers and spills; neither kernel
+    may spill at the head dims of the served models (80: stablelm-3b;
+    128)."""
     rows = []
     for name, (regs, spills) in ptxas_entries(build_log).items():
         m = re.search(r"flash_(wgmma_)?kernelI(?:f)?Li(\d+)E", name)
@@ -157,8 +163,27 @@ def flash_ptxas(build_log: str) -> None:
     for route, hd, regs, spills in sorted(rows):
         log(f"  flash ptxas: {route} hd {hd}: {regs} registers a thread, "
             f"{spills} bytes of spills")
-        if route.startswith("bf16") and hd in (80, 128) and spills:
+        if hd in (80, 128) and spills:
             raise AssertionError(f"flash {route} hd {hd} spills {spills} "
+                                 f"bytes")
+
+
+def probe_ptxas(build_log: str) -> None:
+    """Print each hash-probe instance's registers and spills (one per
+    number of key columns); none may spill."""
+    rows = []
+    for name, (regs, spills) in ptxas_entries(build_log).items():
+        m = re.search(r"hash_probe_kernelILi(\d)E", name)
+        if m:
+            rows.append((int(m.group(1)), regs, spills))
+    if not rows:
+        log("  probe ptxas: no report (the library was already built)")
+        return
+    for keys, regs, spills in sorted(rows):
+        log(f"  probe ptxas: {keys} key column(s): {regs} registers a "
+            f"thread, {spills} bytes of spills")
+        if spills:
+            raise AssertionError(f"hash_probe {keys} keys spills {spills} "
                                  f"bytes")
 
 
@@ -191,68 +216,112 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 #  Phase 2: kernels
 # ---------------------------------------------------------------------------
-def probe_steps(ht, vals: torch.Tensor) -> int:
+def probe_steps(slot_keys, slot_idx, max_probes: int,
+                vals: torch.Tensor) -> int:
     """Table slots this probe batch visits in total (the data-dependent part
     of the hash probe's work)."""
     from repro_torch.kernels.hash_join import hash_keys
-    size = ht["slot_idx"].shape[0]
+    size = slot_idx.shape[0]
     h = hash_keys([vals])
     done = torch.zeros(vals.shape[0], dtype=torch.bool, device=vals.device)
     steps = 0
-    for step in range(ht["max_probes"]):
+    for step in range(max_probes):
         cand = (h + step) & (size - 1)
         steps += int((~done).sum())
-        occ = ht["slot_idx"][cand]
-        hit = (occ >= 0) & (ht["slot_keys"][0][cand] == vals)
+        occ = slot_idx[cand]
+        hit = (occ >= 0) & (slot_keys[0][cand] == vals)
         done |= hit | (occ < 0)
     return steps
 
 
-def phase_hash_probe(bk, data) -> dict:
+def phase_hash_probe(bk, data):
+    """The probe against each Q4.1 dimension at SF1, 1,048,576 rows of one
+    chunk's keys: the packed table the backend caches (read from L2),
+    byte-identical to the plain version over the build's slot arrays and
+    over the packed table, twice, with its event time (CUDA events, host
+    work included).  Returns the kernels line's row (``lookup_part``, with
+    the other tables in a field) and a function that adds each table's
+    device time from ``torch.profiler``: the caller runs it after the
+    grouped sums' event times, because a profiler session leaves the host
+    slower at launching for the rest of the process (about 0.004 ms a
+    launch, PERF.md)."""
     from repro_torch.etl.queries import build_q4
-    from repro_torch.kernels.hash_join import hash_probe, hash_probe_ref
+    from repro_torch.kernels.hash_join import (hash_build, hash_probe,
+                                               hash_probe_cuda,
+                                               hash_probe_packed_ref,
+                                               hash_probe_ref)
     lookups = {c.name: c for c in build_q4(data).flow.vertices.values()
                if type(c).__name__ == "Lookup"}
     chunk = 750_080                     # SF1 / 8 splits, 512-aligned
     bucket = bk.bucket_rows(chunk)      # 1,048,576 probe rows
-    out = {}
+    out, device_runs = {}, []
     for name, col in (("lookup_part", "lo_partkey"),
-                      ("lookup_customer", "lo_custkey")):
+                      ("lookup_customer", "lo_custkey"),
+                      ("lookup_supplier", "lo_suppkey"),
+                      ("lookup_date", "lo_orderdate")):
         lk = lookups[name]
         ht = bk._dim_hash(lk.dim)
+        packed = ht["packed"]
+        # the plain version reads the build's own slot arrays
+        built = hash_build((np.asarray(lk.dim.keys),))
+        sk = tuple(torch.from_numpy(np.asarray(k, dtype=np.int32)).cuda()
+                   for k in built["slot_keys"])
+        si = torch.from_numpy(built["slot_idx"]).cuda()
         host = np.zeros(bucket, dtype=np.int32)
         host[:chunk] = data.lineorder[col][:chunk]
         vals = torch.from_numpy(host).cuda()
-        args = (ht["slot_keys"], ht["slot_idx"], (vals,), ht["max_probes"])
-        idx1, found1 = hash_probe(*args, impl="cuda")
-        idx2, found2 = hash_probe(*args, impl="cuda")
-        ridx, rfound = hash_probe_ref(*args)
+        mp = ht["max_probes"]
+        if mp != built["max_probes"]:
+            raise AssertionError(f"hash_probe[{name}]: the cached table's "
+                                 f"max_probes differs from the build's")
+        ridx, rfound = hash_probe_ref(sk, si, (vals,), mp)
+        pidx, pfound = hash_probe_packed_ref(packed.slots, packed.n_keys,
+                                             (vals,), mp)
+        if not (same(ridx, pidx) and same(rfound, pfound)):
+            raise AssertionError(f"hash_probe[{name}]: the plain version "
+                                 f"over the packed table differs")
+        a = hash_probe_cuda(packed, (vals,), mp)
+        b = hash_probe_cuda(packed, (vals,), mp)
         torch.cuda.synchronize()
-        if not (same(idx1, ridx) and same(found1, rfound)):
+        if not (same(a[0], ridx) and same(a[1], rfound)):
             raise AssertionError(f"hash_probe[{name}] disagrees with plain")
-        if not (same(idx1, idx2) and same(found1, found2)):
+        if not (same(a[0], b[0]) and same(a[1], b[1])):
             raise AssertionError(f"hash_probe[{name}] not bit-stable")
-        T = ht["slot_idx"].shape[0]
-        ms = time_ms(lambda: hash_probe(*args, impl="cuda"))
-        plain_ms = time_ms(lambda: hash_probe_ref(*args), iters=5)
+        # the op as the backend calls it
+        ms = time_ms(lambda: hash_probe(packed, (vals,), mp, impl="cuda"),
+                     iters=100)
+        plain_ms = time_ms(lambda: hash_probe_ref(sk, si, (vals,), mp),
+                           iters=5)
         keys = bk._dim_device(lk.dim)["keys"]
 
         def library():
             i = torch.searchsorted(keys, vals).clamp_(0, keys.shape[0] - 1)
             return keys[i] == vals
-        library_ms = time_ms(library)
-        steps = probe_steps(ht, vals)
-        nbytes = bucket * 4 + T * 8 + bucket * (4 + 1)
+        library_ms = time_ms(library, iters=100)
+        steps = probe_steps(sk, si, mp, vals)
+        table_bytes = packed.slots.numel() * 4
+        nbytes = bucket * 4 + table_bytes + bucket * (4 + 1)
         ops = bucket * 11 + steps * 4   # fmix32 + 3 per visited slot + cmp
         b, by = bound_ms(nbytes, ops)
-        log(f"  hash_probe[{name}]: rows={bucket} T={T} "
-            f"max_probes={ht['max_probes']} found={int(found1.sum())} "
-            f"slots_visited={steps} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} bound_ms={b:.4f} ({by}) "
-            f"identical=True")
+        log(f"  hash_probe[{name}]: rows={bucket} T={packed.size} "
+            f"table_bytes={table_bytes} max_probes={mp} "
+            f"found={int(rfound.sum())} slots_visited={steps} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"bound_ms={b:.4f} ({by}) identical=True")
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=b, bound_by=by, max_abs_err=0.0)
-    return out["lookup_part"]
+        device_runs.append((name, functools.partial(
+            hash_probe_cuda, packed, (vals,), mp)))
+
+    def device_pass() -> None:
+        for name, fn in device_runs:
+            d = out[name]["device_ms"] = call_kernels(fn)[1]
+            log(f"  hash_probe[{name}] device time (torch.profiler): "
+                f"device_ms={'not measured' if d is None else f'{d:.4f}'}")
+    main = out["lookup_part"]
+    main["other_tables"] = {k: v for k, v in out.items()
+                            if k != "lookup_part"}
+    return main, device_pass
 
 
 def _grouped_case(label, ids, vals, n_groups, kernel, plain, library,
@@ -534,7 +603,23 @@ def phase_flash_attention(gen) -> dict:
                  ("masked rows fp32", 1, 100, 20, 1, 2, 16, False, 10, 0.0,
                   f32),
                  ("smoke hd16 fp32", 2, 40, 40, 4, 1, 16, True, 0, 0.0,
-                  f32)):
+                  f32),
+                 # the fp32 kernel's tile shapes follow hd: every head dim,
+                 # each with options that cross its tile edges
+                 ("masked rows fp32 hd8", 1, 100, 20, 1, 2, 8, False, 10,
+                  0.0, f32),
+                 ("gqa+window fp32 hd32", 2, 300, 300, 2, 4, 32, True, 100,
+                  0.0, f32),
+                 ("softcap ragged fp32 hd64", 1, 257, 257, 2, 1, 64, True, 0,
+                  30.0, f32),
+                 ("causal Sq>Skv fp32 hd80", 1, 200, 70, 2, 2, 80, True, 0,
+                  0.0, f32),
+                 ("cross ragged fp32 hd96", 1, 77, 213, 1, 2, 96, False, 0,
+                  0.0, f32),
+                 ("gqa+window+softcap fp32 hd128", 2, 300, 300, 2, 4, 128,
+                  True, 100, 30.0, f32),
+                 ("causal Sq<Skv fp32 hd256", 1, 70, 200, 1, 2, 256, True, 0,
+                  0.0, f32)):
         _flash_case(*args[:1], gen, *args[1:], library=False)
     return main
 
@@ -733,6 +818,75 @@ def run_main(data, expect: dict) -> dict:
         log(f"  {qname}/{engine.__name__}: second run byte-identical")
     torch.cuda.synchronize()
     return launch_counts()
+
+
+#: value columns of the wide Aggregate: more than the grouped sum's 32 a
+#: launch, so the radix groupby sums them in two batches
+WIDE_OUTPUTS = 40
+
+
+def wide_aggregate(backend: str, cols: dict):
+    """One keyed Aggregate with WIDE_OUTPUTS sums on ``backend``: the sink's
+    table, the radix-groupby launches and the run."""
+    from repro_torch.core import OptimizedEngine, OptimizeOptions
+    from repro_torch.core.graph import Dataflow
+    from repro_torch.etl.components import Aggregate, ArraySource, CollectSink
+    from repro_torch.kernels import launch_counts, reset_launches
+    flow = Dataflow("wide-aggregate")
+    src = ArraySource("rows", cols)
+    agg = Aggregate("sums", ["k1", "k2"],
+                    {f"s{i}": (f"v{i}", "sum") for i in range(WIDE_OUTPUTS)})
+    sink = CollectSink("sink")
+    flow.chain(src, agg, sink)
+    reset_launches()
+    run = OptimizedEngine(flow, OptimizeOptions(backend=backend,
+                                                num_splits=4)).run()
+    if backend == "torch":
+        torch.cuda.synchronize()
+    return sink.result(), launch_counts()["radix_groupby"], run
+
+
+def phase_wide_aggregate(rng) -> None:
+    """A keyed Aggregate with 40 sum outputs (Q4.1's 147 group cells,
+    600,000 rows) on backend torch, held against torch_cpu: keys
+    byte-identical, integer-valued sums exact, float sums within the
+    backend's oracle_rtol; on the card the radix groupby launches twice
+    (32 + 8 columns), once on the CPU route never."""
+    from repro_torch.core import resolve_backend
+    n = 600_000
+    cols = {"k1": rng.integers(1992, 1999, n), "k2": rng.integers(0, 21, n)}
+    for i in range(WIDE_OUTPUTS):
+        cols[f"v{i}"] = (rng.integers(0, 1000, n) if i % 2 else
+                         rng.random(n) * 1e3)
+    rtol = resolve_backend("torch").oracle_rtol
+    got, launches, run = wide_aggregate("torch", cols)
+    want, cpu_launches, _ = wide_aggregate("torch_cpu", cols)
+    if launches != 2 or cpu_launches != 0:
+        raise AssertionError(f"wide Aggregate: radix_groupby launched "
+                             f"{launches} times on torch, {cpu_launches} on "
+                             f"torch_cpu; expected 2 and 0")
+    if set(got) != set(want):
+        raise AssertionError("wide Aggregate: other output columns")
+    err = 0.0
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        if g.shape != w.shape:
+            raise AssertionError(f"wide Aggregate: {k} shape {g.shape} vs "
+                                 f"{w.shape}")
+        if k in ("k1", "k2") or int(k[1:]) % 2:
+            if g.tobytes() != w.tobytes():
+                raise AssertionError(f"wide Aggregate: {k} differs from "
+                                     f"torch_cpu")
+        else:
+            err = max(err, float(np.max(np.abs(g - w) / np.abs(w))))
+            if not np.allclose(g, w, rtol=rtol, atol=0.0):
+                raise AssertionError(f"wide Aggregate: {k} beyond rtol {rtol}"
+                                     f" of torch_cpu")
+    log(f"  wide Aggregate: {n} rows, {WIDE_OUTPUTS} sums over "
+        f"{len(want['k1'])} groups on torch in {run.wall_time:.3f}s, "
+        f"radix_groupby launches={launches}; keys and integer sums "
+        f"identical to torch_cpu, float sums max_rel_err={err:.3g} "
+        f"(oracle_rtol {rtol}) ok")
 
 
 def profile_device(label: str, fn) -> None:
@@ -969,6 +1123,7 @@ def main() -> int:
     log(f"ptxas: {ptxas_summary(_cuda.build_log)}")
     flash_ptxas(_cuda.build_log)
     scan_ptxas(_cuda.build_log)
+    probe_ptxas(_cuda.build_log)
     bk = resolve_backend("torch")
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda")
@@ -983,11 +1138,13 @@ def main() -> int:
         f"{len(data.supplier['s_suppkey'])}, part "
         f"{len(data.part['p_partkey'])}, date {len(data.date['d_datekey'])}")
     log("kernels:")
-    measured = {"hash_probe": phase_hash_probe(bk, data),
+    probe, probe_device_pass = phase_hash_probe(bk, data)
+    measured = {"hash_probe": probe,
                 "radix_groupby": phase_radix_groupby(rng),
-                "segment_sum": phase_segment_sum(rng),
-                "flash_attention": phase_flash_attention(gen),
-                "mamba_scan": phase_mamba_scan(gen)}
+                "segment_sum": phase_segment_sum(rng)}
+    probe_device_pass()
+    measured["flash_attention"] = phase_flash_attention(gen)
+    measured["mamba_scan"] = phase_mamba_scan(gen)
     torch.cuda.empty_cache()
 
     # ---- phase 3: the ETL main path
@@ -1000,6 +1157,8 @@ def main() -> int:
     if args.profile:
         profile_q41(data)
     del data
+    log("Aggregate wider than one grouped-sum launch:")
+    phase_wide_aggregate(rng)
 
     # ---- phase 4: the LM serving path, one model at a time
     log(f"LM serving path ({SERVE}):")
@@ -1030,6 +1189,11 @@ def main() -> int:
                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+        if name == "hash_probe":
+            row.update({k: m[k] for k in ("device_ms", "other_tables")})
+            row["probe_note"] = ("1,048,576 rows against part; device_ms "
+                                 "from torch.profiler; other_tables: "
+                                 "customer, supplier and date")
         if name == "flash_attention":
             row.update({k: v for k, v in m.items() if k.startswith("fp32_")})
             row["fp32_note"] = ("the fp32 FMA kernel "

@@ -42,7 +42,7 @@ from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...kernels.hash_join import hash_build, hash_probe
+from ...kernels.hash_join import hash_build, hash_probe, pack_table
 from ...kernels.radix_groupby import radix_groupby
 from ...kernels.segment_sum import segment_sum
 from ...obs import trace as obs_trace
@@ -228,8 +228,10 @@ class TorchBackend(Backend):
 
     def _dim_hash(self, dim) -> Dict[str, object]:
         """Open-addressing hash table over the DimTable's keys: built once on
-        host (``kernels/hash_join.hash_build``), slot arrays uploaded once,
-        cached on the table itself like ``_dim_device``."""
+        host (``kernels/hash_join.hash_build``), its slot arrays uploaded
+        once and packed on the device (``kernels/hash_join.pack_table``),
+        and only the packed table kept, cached on the table itself like
+        ``_dim_device``."""
         key = str(self.device)
         cache = dim.__dict__.setdefault("_torch_hash_cache", {})
         ht = cache.get(key)
@@ -242,9 +244,12 @@ class TorchBackend(Backend):
                         record_dim_upload(np.asarray(k).nbytes)
                     record_dim_upload(np.asarray(built["slot_idx"]).nbytes)
                     ht = cache[key] = {
-                        "slot_keys": tuple(self.asarray(k)
-                                           for k in built["slot_keys"]),
-                        "slot_idx": self.asarray(built["slot_idx"]),
+                        # packed on the device from the uploaded arrays,
+                        # which are then dropped
+                        "packed": pack_table(
+                            tuple(self.asarray(k)
+                                  for k in built["slot_keys"]),
+                            self.asarray(built["slot_idx"])),
                         "max_probes": int(built["max_probes"]),
                     }
         return ht
@@ -287,7 +292,7 @@ class TorchBackend(Backend):
             matched = (keys[idx] == vals) & dev["qualifies"][idx]
             return idx, matched
         ht = self._dim_hash(dim)
-        idx, found = hash_probe(ht["slot_keys"], ht["slot_idx"],
+        idx, found = hash_probe(ht["packed"],
                                 (vals.to(torch.int32).contiguous(),),
                                 ht["max_probes"], impl=impl)
         return idx, found & dev["qualifies"][idx.long()]

@@ -5,9 +5,11 @@
 // translation unit that includes this header gets its own copy.
 //
 // Contract: ids[N] int32, a row with id outside [0, n_groups) is padding;
-// values[N, C] float32 row-major, 0 <= C <= 32.  out sums[g, c] = sum of
-// values[r, c] over rows with ids[r] == g; counts[g] = number of such rows
-// (float32).  cols = C + (1 if counts).
+// values[N, C] float32, row r at values + r * ldv, 0 <= C <= 32 and
+// ldv >= C.  out sums[g, c] (row g at sums + g * lds) = sum of values[r, c]
+// over rows with ids[r] == g; counts[g] = number of such rows (float32).
+// cols = C + (1 if counts).  The row strides let a caller sum a slice of
+// the columns of a wider matrix into a slice of a wider output in place.
 //
 // Reductions must give bit-identical sums from run to run (serial vs
 // sharded and replay contracts rest on it), so there are no float atomics:
@@ -234,8 +236,9 @@ __global__ void gs_scatter(const int32_t* __restrict__ ids, int64_t n,
 __global__ void gs_accumulate(const int32_t* __restrict__ perm,
                               const int32_t* __restrict__ local_id,
                               const int32_t* __restrict__ base,
-                              const float* __restrict__ values, int C,
-                              int with_counts, int n_slices, int64_t g_pad,
+                              const float* __restrict__ values, int64_t ldv,
+                              int C, int with_counts, int n_slices,
+                              int64_t g_pad,
                               float* __restrict__ partials) {
   extern __shared__ float smem[];
   const int n_cols = C + with_counts;
@@ -256,7 +259,7 @@ __global__ void gs_accumulate(const int32_t* __restrict__ perm,
     for (int j = g; j < m; j += kPartGroups) tile_lid[j] = local_id[t0 + j];
     for (int k = g; k < m * C; k += kPartGroups) {
       const int j = k / C;
-      tile_val[k] = values[(int64_t)perm[t0 + j] * C + (k - j * C)];
+      tile_val[k] = values[(int64_t)perm[t0 + j] * ldv + (k - j * C)];
     }
     __syncthreads();
     for (int j = 0; j < m; ++j) {
@@ -274,7 +277,7 @@ __global__ void gs_accumulate(const int32_t* __restrict__ perm,
 __global__ void gs_finalize(const float* __restrict__ partials, int n_slices,
                             int64_t g_pad, int n_groups, int C,
                             int with_counts, float* __restrict__ sums,
-                            float* __restrict__ counts) {
+                            int64_t lds, float* __restrict__ counts) {
   const int n_cols = C + with_counts;
   const int64_t total = (int64_t)n_groups * n_cols;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -286,7 +289,7 @@ __global__ void gs_finalize(const float* __restrict__ partials, int n_slices,
     for (int s = 0; s < n_slices; ++s)
       v += partials[((int64_t)s * g_pad + g) * n_cols + c];
     if (c < C)
-      sums[g * C + c] = v;
+      sums[g * lds + c] = v;
     else
       counts[g] = v;
   }
@@ -295,10 +298,11 @@ __global__ void gs_finalize(const float* __restrict__ partials, int n_slices,
 // cell k = g * cols + c of the output: sums[g, c] or, for c == C, counts[g]
 __device__ __forceinline__ void store_cell(int k, int C, int cols, float v,
                                            float* __restrict__ sums,
+                                           int64_t lds,
                                            float* __restrict__ counts) {
   const int g = k / cols, c = k - g * cols;
   if (c < C)
-    sums[(int64_t)g * C + c] = v;
+    sums[(int64_t)g * lds + c] = v;
   else
     counts[g] = v;
 }
@@ -307,14 +311,15 @@ __device__ __forceinline__ void store_cell(int k, int C, int cols, float v,
 // padding and past hi) and its C values
 __device__ __forceinline__ int32_t load_row(const int32_t* __restrict__ ids,
                                             const float* __restrict__ values,
-                                            int64_t r, int64_t hi, int C,
+                                            int64_t ldv, int64_t r,
+                                            int64_t hi, int C,
                                             int n_groups, float (&x)[32]) {
   int32_t g = r < hi ? ids[r] : -1;
   if (g >= n_groups) g = -1;
 #pragma unroll
   for (int c = 0; c < 32; ++c) {
     if (c >= C) break;
-    x[c] = g >= 0 ? values[r * C + c] : 0.0f;
+    x[c] = g >= 0 ? values[r * ldv + c] : 0.0f;
   }
   return g;
 }
@@ -374,9 +379,10 @@ __device__ __forceinline__ void add_batch(float* __restrict__ part, int cols,
 // fit an SM, so the plan's grid (at most kDirectMaxBlocks) is co-resident.
 __global__ void __launch_bounds__(kDirectWarps * 32, kDirectMinBlocks)
     gs_direct(const int32_t* __restrict__ ids, const float* __restrict__ values,
-              int64_t n, int C, int n_groups, int with_counts,
+              int64_t ldv, int64_t n, int C, int n_groups, int with_counts,
               int64_t rows_per_block, float* __restrict__ block_part,
-              float* __restrict__ sums, float* __restrict__ counts) {
+              float* __restrict__ sums, int64_t lds,
+              float* __restrict__ counts) {
   extern __shared__ float smem[];
   const int cols = C + with_counts;
   const int cells = n_groups * cols;
@@ -389,7 +395,7 @@ __global__ void __launch_bounds__(kDirectWarps * 32, kDirectMinBlocks)
   const int64_t hi = lo + per_warp < n ? lo + per_warp : n;
   for (int64_t r0 = lo; r0 < hi; r0 += 32) {
     float x[32];
-    const int32_t g = load_row(ids, values, r0 + lane, hi, C, n_groups, x);
+    const int32_t g = load_row(ids, values, ldv, r0 + lane, hi, C, n_groups, x);
     add_batch(part, cols, C, with_counts, lane, g, x);
   }
   __syncthreads();
@@ -398,7 +404,7 @@ __global__ void __launch_bounds__(kDirectWarps * 32, kDirectMinBlocks)
     float v = smem[k];
     for (int w = 1; w < kDirectWarps; ++w) v += smem[w * cells + k];
     if (single)
-      store_cell(k, C, cols, v, sums, counts);
+      store_cell(k, C, cols, v, sums, lds, counts);
     else
       block_part[(int64_t)k * gridDim.x + blockIdx.x] = v;
   }
@@ -413,7 +419,7 @@ __global__ void __launch_bounds__(kDirectWarps * 32, kDirectMinBlocks)
     for (int b = lane; b < n_blocks; b += 32) v += cell[b];
     // every lane ends with the same sum: each step adds the same two values
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) store_cell(k, C, cols, v, sums, counts);
+    if (lane == 0) store_cell(k, C, cols, v, sums, lds, counts);
   }
 }
 
@@ -427,12 +433,14 @@ __global__ void __launch_bounds__(kDirectWarps * 32, kDirectMinBlocks)
 //                            perm[n], local_id[n]
 //                 fws float: partials[n_slices * g_pad * cols]
 inline cudaError_t grouped_sum_launch(const int32_t* ids, const float* values,
-                                      int64_t n, int C, int n_groups,
-                                      int with_counts, int64_t rows_per_block,
-                                      int n_slices, int32_t* iws, float* fws,
-                                      float* sums, float* counts,
+                                      int64_t ldv, int64_t n, int C,
+                                      int n_groups, int with_counts,
+                                      int64_t rows_per_block, int n_slices,
+                                      int32_t* iws, float* fws, float* sums,
+                                      int64_t lds, float* counts,
                                       cudaStream_t stream) {
   if (n_groups <= 0) return cudaGetLastError();
+  if (ldv < C || lds < C) return cudaErrorInvalidValue;
   const int n_cols = C + with_counts;
   int64_t n_blocks = (n + rows_per_block - 1) / rows_per_block;
   if (n_blocks < 1) n_blocks = 1;
@@ -441,9 +449,10 @@ inline cudaError_t grouped_sum_launch(const int32_t* ids, const float* values,
     const size_t smem =
         (size_t)kDirectWarps * n_groups * n_cols * sizeof(float);
     float* block_part = fws;
-    void* args[] = {&ids,         &values, &n,    &C,         &n_groups,
-                    &with_counts, &rows_per_block, &block_part, &sums,
-                    &counts};
+    void* args[] = {&ids,       &values,      &ldv,
+                    &n,         &C,           &n_groups,
+                    &with_counts, &rows_per_block, &block_part,
+                    &sums,      &lds,         &counts};
     return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gs_direct),
                                        dim3((unsigned)n_blocks),
                                        dim3(kDirectWarps * 32), args, smem,
@@ -468,13 +477,14 @@ inline cudaError_t grouped_sum_launch(const int32_t* ids, const float* values,
                            kTile * sizeof(int32_t) +
                            kTileFloats * sizeof(float);
   gs_accumulate<<<dim3(n_parts, n_slices), kPartGroups, acc_bytes, stream>>>(
-      perm, local_id, base, values, C, with_counts, n_slices, g_pad, fws);
+      perm, local_id, base, values, ldv, C, with_counts, n_slices, g_pad,
+      fws);
   const int64_t cells = (int64_t)n_groups * n_cols;
   int64_t fin_blocks = (cells + 255) / 256;
   if (fin_blocks < 1) fin_blocks = 1;
   if (fin_blocks > 65535LL * 8) fin_blocks = 65535LL * 8;
   gs_finalize<<<(unsigned)fin_blocks, 256, 0, stream>>>(
-      fws, n_slices, g_pad, n_groups, C, with_counts, sums, counts);
+      fws, n_slices, g_pad, n_groups, C, with_counts, sums, lds, counts);
   return cudaGetLastError();
 }
 

@@ -8,18 +8,22 @@
 // one cooperative launch, and a large one is moved into partition order
 // once and each partition's rows reduced in a fixed order: see
 // grouped_sum.cuh for both routes, the bound (bytes) and the determinism
-// argument.
+// argument.  Without a counts buffer (counts == nullptr) it sums the value
+// columns alone: the wrapper takes the counts once, with the first batch
+// of MAX_COLS columns.
 #include "grouped_sum.cuh"
 
+// values: row r at values + r * ldv; sums: row g at sums + g * lds
 extern "C" int repro_radix_groupby(const void* ids, const void* values,
-                                   int64_t n, int C, int n_groups,
-                                   int64_t rows_per_block, int n_slices,
-                                   void* iws, void* fws, void* sums,
-                                   void* counts, void* stream) {
+                                   int64_t ldv, int64_t n, int C,
+                                   int n_groups, int64_t rows_per_block,
+                                   int n_slices, void* iws, void* fws,
+                                   void* sums, int64_t lds, void* counts,
+                                   void* stream) {
   return (int)grouped_sum_launch(
-      static_cast<const int32_t*>(ids), static_cast<const float*>(values), n,
-      C, n_groups, /*with_counts=*/1, rows_per_block, n_slices,
-      static_cast<int32_t*>(iws), static_cast<float*>(fws),
-      static_cast<float*>(sums), static_cast<float*>(counts),
+      static_cast<const int32_t*>(ids), static_cast<const float*>(values),
+      ldv, n, C, n_groups, /*with_counts=*/counts != nullptr, rows_per_block,
+      n_slices, static_cast<int32_t*>(iws), static_cast<float*>(fws),
+      static_cast<float*>(sums), lds, static_cast<float*>(counts),
       static_cast<cudaStream_t>(stream));
 }

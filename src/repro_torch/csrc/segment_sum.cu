@@ -11,14 +11,16 @@
 // order.
 #include "grouped_sum.cuh"
 
+// values: row r at values + r * ldv; out: row g at out + g * ldo
 extern "C" int repro_segment_sum(const void* seg_ids, const void* values,
-                                 int64_t n, int C, int n_groups,
+                                 int64_t ldv, int64_t n, int C, int n_groups,
                                  int64_t rows_per_block, int n_slices,
-                                 void* iws, void* fws, void* out,
+                                 void* iws, void* fws, void* out, int64_t ldo,
                                  void* stream) {
   return (int)grouped_sum_launch(
       static_cast<const int32_t*>(seg_ids), static_cast<const float*>(values),
-      n, C, n_groups, /*with_counts=*/0, rows_per_block, n_slices,
+      ldv, n, C, n_groups, /*with_counts=*/0, rows_per_block, n_slices,
       static_cast<int32_t*>(iws), static_cast<float*>(fws),
-      static_cast<float*>(out), nullptr, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(out), ldo, nullptr,
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,9 @@
 # Hand-written CUDA kernels (sm_90a) for the port's hot spots, one package
 # per TPU kernel of the reference:
 #
-#   hash_join       — open-addressing hash build (host) + CUDA probe for the
-#                     Lookup component (csrc/hash_probe.cu).
+#   hash_join       — open-addressing hash build (host), the table packed
+#                     on the device, and the CUDA probe for the Lookup
+#                     component (csrc/hash_probe.cu).
 #   radix_groupby   — deterministic grouped sums + counts over
 #                     dense key ids for keyed Aggregates
 #                     (csrc/radix_groupby.cu).

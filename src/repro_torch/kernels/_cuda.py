@@ -45,11 +45,16 @@ _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)
 #: thread's current device, which the wrappers set with
 #: ``torch.cuda.device`` for the call only.
 _SIGNATURES = {
-    "repro_hash_probe": (ctypes.POINTER(_P), ctypes.POINTER(_P), _P, _I,
-                         _I64, _I, _I64, _P, _P, _P),
-    "repro_radix_groupby": (_P, _P, _I64, _I, _I, _I64, _I, _P, _P, _P, _P,
-                            _P),
-    "repro_segment_sum": (_P, _P, _I64, _I, _I, _I64, _I, _P, _P, _P, _P),
+    #: table, n_keys, size, max_probes, n, 4 key columns, idx, found,
+    #: stream
+    "repro_hash_probe": (_P, _I, _I64, _I, _I64, _P, _P, _P, _P, _P, _P, _P),
+    #: ids, values, values' row stride, n, C, n_groups, rows_per_block,
+    #: n_slices, int and float workspace, sums, sums' row stride, counts
+    #: (radix groupby only), stream
+    "repro_radix_groupby": (_P, _P, _I64, _I64, _I, _I, _I64, _I, _P, _P, _P,
+                            _I64, _P, _P),
+    "repro_segment_sum": (_P, _P, _I64, _I64, _I, _I, _I64, _I, _P, _P, _P,
+                          _I64, _P),
     "repro_flash_attention_fp32": _FLASH,
     "repro_flash_attention_bf16": _FLASH,
     "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

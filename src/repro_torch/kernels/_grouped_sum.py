@@ -126,21 +126,67 @@ def workspace(p: Plan, device: torch.device, stream: int) -> tuple:
     return buf, base, base + 4 * p.int_words
 
 
+def in_column_batches(batch_sum, ids: torch.Tensor, values: torch.Tensor,
+                      n_groups: int, with_counts: bool
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Grouped sums of any number of value columns through ``batch_sum``,
+    which takes at most ``MAX_COLS``: ``batch_sum(ids, values [N, c],
+    n_groups, with_counts, out [n_groups, c]) -> (out, counts or None)``
+    writes a batch's sums into ``out``.
+
+    Each batch of at most MAX_COLS columns is one call, which reads its
+    column slice of ``values`` and writes its column slice of one output in
+    place (slices, not copies); only the first asks for the counts.  Every
+    column is summed on its own (in the kernel and in the plain version
+    alike), in an order that depends on the ids alone, so a column's sums
+    do not depend on which batch it lands in: the result is bit-identical
+    to one call over all the columns, and two runs are bit-identical.  No
+    float atomics."""
+    c = values.shape[1]
+    sums = values.new_empty((n_groups, c))
+    counts = None
+    for c0 in range(0, c, MAX_COLS):
+        c1 = min(c0 + MAX_COLS, c)
+        _, got = batch_sum(ids, values[:, c0:c1], n_groups,
+                           with_counts and c0 == 0, sums[:, c0:c1])
+        if c0 == 0:
+            counts = got
+    return sums, counts
+
+
 def launch(name: str, ids: torch.Tensor, values: torch.Tensor, n_groups: int,
            with_counts: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch ``csrc/<name>.cu`` (``radix_groupby`` with counts,
     ``segment_sum`` without): ids int32 [N], values float32 [N, C], both
     contiguous CUDA tensors on one device.  Returns ``sums [n_groups, C]``
-    and ``counts [n_groups]`` (None without counts).  A call at the SSB
-    shapes is host-bound, so it does no Python work the launch does not
-    need."""
+    and ``counts [n_groups]`` (None without counts).  More than MAX_COLS
+    columns take one launch a batch of MAX_COLS (:func:`in_column_batches`).
+    A call at the SSB shapes is host-bound, so it does no Python work the
+    launch does not need."""
     _cuda.require(ids, "ids", torch.int32, 1)
     _cuda.require(values, "values", torch.float32, 2, ids.device)
     n, c = values.shape
     if ids.shape[0] != n:
         raise ValueError(f"{name}: ids has {ids.shape[0]} rows, values {n}")
     n_groups = int(n_groups)
-    sums = ids.new_empty((n_groups, c), dtype=torch.float32)
+    if c > MAX_COLS:
+        return in_column_batches(functools.partial(_launch_batch, name),
+                                 ids, values, n_groups, with_counts)
+    return _launch_batch(name, ids, values, n_groups, with_counts)
+
+
+def _launch_batch(name: str, ids: torch.Tensor, values: torch.Tensor,
+                  n_groups: int, with_counts: bool,
+                  sums: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch over at most MAX_COLS value columns (checked by
+    :func:`launch`).  ``values`` and ``sums`` (allocated when None) may be
+    column slices of wider matrices: the kernel takes their row strides.
+    The radix-groupby entry point skips the counts when it is given no
+    counts buffer."""
+    n, c = values.shape
+    if sums is None:
+        sums = ids.new_empty((n_groups, c), dtype=torch.float32)
     counts = (ids.new_empty(n_groups, dtype=torch.float32) if with_counts
               else None)
     if n_groups == 0 or c + with_counts == 0:
@@ -148,12 +194,14 @@ def launch(name: str, ids: torch.Tensor, values: torch.Tensor, n_groups: int,
     p = plan(n, n_groups, c, with_counts)
     stream = _cuda.stream_ptr(ids)
     ws, iws, fws = workspace(p, ids.device, stream)  # ws: alive to launch
-    out = ((sums.data_ptr(), counts.data_ptr()) if with_counts
-           else (sums.data_ptr(),))
+    out = ((sums.data_ptr(), sums.stride(0),
+            counts.data_ptr() if with_counts else None)
+           if name == "radix_groupby" else (sums.data_ptr(), sums.stride(0)))
     entry = getattr(_cuda.library(), f"repro_{name}")
     with _cuda.device_guard(ids):
         _cuda.count_launch(name)
-        rc = entry(ids.data_ptr(), values.data_ptr(), n, c, n_groups,
-                   p.rows_per_block, p.n_slices, iws, fws, *out, stream)
+        rc = entry(ids.data_ptr(), values.data_ptr(), values.stride(0), n, c,
+                   n_groups, p.rows_per_block, p.n_slices, iws, fws, *out,
+                   stream)
     _cuda.check(rc, name)
     return sums, counts

@@ -6,7 +6,8 @@ It replaces the TPU kernel ``repro/kernels/flash_attention/kernel.py``:
 chooses the kernel: bf16 (the models' compute dtype) runs
 ``csrc/flash_attention_mma.cu``, whose two products are bf16 ``wgmma`` on
 the tensor cores with fp32 accumulation; fp32 runs
-``csrc/flash_attention.cu``, fp32 FMAs that keep the fp32 tolerance.
+``csrc/flash_attention.cu``, fp32 FMAs that keep the fp32 tolerance, laid
+out as a register-tiled SIMT GEMM fed by a ``cp.async`` ring.
 Operations, not bytes, bound both; their times, launches and bounds on the
 H100 are in PERF.md."""
 from __future__ import annotations
@@ -46,8 +47,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int = 0,
                          softcap: float = 0.0) -> torch.Tensor:
-    """Launch the kernel for q's dtype (bf16 or fp32, contiguous; bf16
-    tensors 16-byte aligned, since the kernel copies 16-byte rows)."""
+    """Launch the kernel for q's dtype (bf16 or fp32, contiguous, 16-byte
+    aligned: both kernels copy rows in 16-byte pieces with cp.async)."""
     if q.dtype not in _ENTRY:
         raise TypeError(f"flash_attention takes bfloat16 or float32, got "
                         f"{q.dtype}")
@@ -62,11 +63,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(t.shape) != (B, Skv, Kh, hd):
             raise ValueError(f"flash_attention: {name} has shape "
                              f"{tuple(t.shape)}, expected {(B, Skv, Kh, hd)}")
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash_attention: bf16 {name} must start "
-                                 f"on a 16-byte boundary")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a "
+                             f"16-byte boundary")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

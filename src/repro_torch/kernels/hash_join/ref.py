@@ -166,3 +166,32 @@ def hash_probe_ref(slot_keys: Sequence[torch.Tensor], slot_idx: torch.Tensor,
         found |= hit
         done |= hit | miss
     return idx, found
+
+
+#: int32 words of a packed slot for 1-4 key columns: the keys, then the row
+#: index, padded with zeros to 8, 16 or 32 bytes (``csrc/hash_probe.cu``)
+SLOT_WORDS = {1: 2, 2: 4, 3: 4, 4: 8}
+
+
+def pack_slots(slot_keys: Sequence[torch.Tensor], slot_idx: torch.Tensor
+               ) -> torch.Tensor:
+    """The interleaved table ``int32 [T, SLOT_WORDS[k]]`` of ``k`` slot-key
+    arrays and the slot rows, on their device: row ``s`` holds
+    ``slot_keys[0][s], ..., slot_keys[k-1][s], slot_idx[s]``, then zeros."""
+    k = len(slot_keys)
+    out = torch.zeros((slot_idx.shape[0], SLOT_WORDS[k]), dtype=torch.int32,
+                      device=slot_idx.device)
+    for c, sk in enumerate(slot_keys):
+        out[:, c] = sk
+    out[:, k] = slot_idx
+    return out
+
+
+def hash_probe_packed_ref(slots: torch.Tensor, n_keys: int,
+                          val_cols: Sequence[torch.Tensor], max_probes: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain probe over a packed table (:func:`pack_slots`): reads each
+    slot's keys and row from its words, as the kernel does, and returns
+    what :func:`hash_probe_ref` returns over the unpacked arrays."""
+    return hash_probe_ref(tuple(slots[:, c] for c in range(n_keys)),
+                          slots[:, n_keys], val_cols, max_probes)

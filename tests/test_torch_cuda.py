@@ -17,7 +17,8 @@ from repro_torch.core import OptimizedEngine, OptimizeOptions
 from repro_torch.etl import queries, ssb
 from repro_torch.kernels import launch_counts, reset_launches
 from repro_torch.kernels.hash_join import (hash_build, hash_probe,
-                                           hash_probe_ref)
+                                           hash_probe_cuda, hash_probe_ref,
+                                           pack_table)
 from repro_torch.kernels.radix_groupby import (radix_groupby,
                                                radix_groupby_ref)
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_ref
@@ -49,13 +50,126 @@ def test_hash_probe_kernel_matches_plain(dev, n_keys):
     probes = RNG.integers(-3_100, 3_100, size=(70_001, n_keys))
     vals = tuple(torch.from_numpy(probes[:, j].astype(np.int32)).to(dev)
                  for j in range(n_keys))
+    table = pack_table(sk, si)
     reset_launches()
-    idx, found = hash_probe(sk, si, vals, built["max_probes"])
-    idx2, found2 = hash_probe(sk, si, vals, built["max_probes"])
+    idx, found = hash_probe(table, vals, built["max_probes"])
+    idx2, found2 = hash_probe(table, vals, built["max_probes"])
     assert launch_counts()["hash_probe"] == 2
     ridx, rfound = hash_probe_ref(sk, si, vals, built["max_probes"])
     assert _same(idx, ridx) and _same(found, rfound)
     assert _same(idx, idx2) and _same(found, found2)
+
+
+# The probe against the plain version, byte for byte: 1-4 key columns,
+# misses, duplicate keys (first row wins), n = 0, row counts that are not a
+# multiple of the kernel's 4 rows a thread, key columns off 16-byte
+# alignment (row-by-row loads), a short max_probes, enough rows that each
+# thread takes several groups, and tables from 2 KB to the 4 MB of SSB SF1
+# part.
+@pytest.mark.parametrize("n_keys,d,n,dup,offset,max_probes", [
+    (1, 600, 70_001, False, 0, None), (2, 600, 70_002, True, 0, None),
+    (3, 600, 70_003, False, 1, None), (4, 600, 70_000, True, 3, None),
+    (1, 600, 0, False, 0, None), (4, 600, 5, False, 0, None),
+    (1, 600, 2_000_003, True, 0, None), (2, 600, 30_000, False, 0, 2),
+    (1, 200_000, 1_000_001, False, 0, None),
+    (2, 60_000, 300_001, True, 2, None)])
+def test_hash_probe_packed_matches_plain(dev, n_keys, d, n, dup, offset,
+                                         max_probes):
+    span = max(400, d)
+    rows = np.unique(RNG.integers(-span, span, size=(d, n_keys)), axis=0)
+    RNG.shuffle(rows)
+    if dup:
+        rows = np.concatenate([rows, rows[: len(rows) // 3]])
+    built = hash_build(tuple(rows[:, j] for j in range(n_keys)))
+    sk = tuple(torch.from_numpy(k.astype(np.int32)).to(dev)
+               for k in built["slot_keys"])
+    si = torch.from_numpy(built["slot_idx"]).to(dev)
+    table = pack_table(sk, si)
+    mp = built["max_probes"] if max_probes is None else max_probes
+    probes = RNG.integers(-span - 20, span + 20, size=(n, n_keys))
+    hit = RNG.random(n) < 0.6
+    probes[hit] = rows[RNG.integers(0, len(rows), int(hit.sum()))]
+
+    def column(j):
+        flat = torch.empty(n + offset, dtype=torch.int32, device=dev)
+        out = flat[offset:]
+        out.copy_(torch.from_numpy(probes[:, j].astype(np.int32)))
+        return out
+    vals = tuple(column(j) for j in range(n_keys))
+    reset_launches()
+    idx, found = hash_probe_cuda(table, vals, mp)
+    idx2, found2 = hash_probe_cuda(table, vals, mp)
+    assert launch_counts()["hash_probe"] == (2 if n else 0)
+    ridx, rfound = hash_probe_ref(sk, si, vals, mp)
+    assert _same(idx, ridx) and _same(found, rfound)
+    assert _same(idx, idx2) and _same(found, found2)
+    if n >= 1_000 and max_probes is None:
+        assert bool(found.any()) and not bool(found.all())
+
+
+def test_wide_aggregate_matches_torch_cpu(dev):
+    """A keyed Aggregate with 40 sum outputs (above the 32 value columns of
+    one grouped-sum launch) on torch: two radix-groupby launches, keys and
+    integer sums identical to torch_cpu, float sums within oracle_rtol."""
+    from repro_torch.core import resolve_backend
+    from repro_torch.core.graph import Dataflow
+    from repro_torch.etl.components import Aggregate, ArraySource, CollectSink
+    n, outs = 50_000, 40
+    cols = {"k1": RNG.integers(1992, 1999, n), "k2": RNG.integers(0, 21, n)}
+    for i in range(outs):
+        cols[f"v{i}"] = (RNG.integers(0, 1000, n) if i % 2
+                         else RNG.random(n) * 1e3)
+    got = {}
+    for backend in ("torch", "torch_cpu"):
+        flow = Dataflow("wide-aggregate")
+        sink = CollectSink("sink")
+        flow.chain(ArraySource("rows", cols),
+                   Aggregate("sums", ["k1", "k2"],
+                             {f"s{i}": (f"v{i}", "sum")
+                              for i in range(outs)}), sink)
+        reset_launches()
+        OptimizedEngine(flow, OptimizeOptions(backend=backend,
+                                              num_splits=4)).run()
+        got[backend] = (sink.result(), launch_counts()["radix_groupby"])
+    (res, launches), (want, cpu_launches) = got["torch"], got["torch_cpu"]
+    assert launches == 2 and cpu_launches == 0
+    assert list(res) == list(want)
+    rtol = resolve_backend("torch").oracle_rtol
+    for k, w in want.items():
+        assert res[k].dtype == w.dtype and res[k].shape == w.shape
+        if k in ("k1", "k2") or int(k[1:]) % 2:
+            np.testing.assert_array_equal(res[k], w)
+        else:
+            np.testing.assert_allclose(res[k], w, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("op,c", [("groupby", 40), ("groupby", 65),
+                                  ("segsum", 33), ("segsum", 70)])
+def test_grouped_sums_take_any_column_count(dev, op, c):
+    """More than 32 value columns: one launch a batch of 32, counts once;
+    integer sums and counts byte-identical to the plain version, two calls
+    bit-identical on fractions."""
+    n, g = 40_000, 147
+    ids = torch.from_numpy(RNG.integers(-1, g + 1, n).astype(np.int32)
+                           ).to(dev)
+    exact = torch.from_numpy(RNG.integers(0, 64, (n, c)).astype(np.float32)
+                             ).to(dev)
+    frac = torch.from_numpy(RNG.random((n, c)).astype(np.float32)).to(dev)
+    kernel, plain = ((radix_groupby, radix_groupby_ref) if op == "groupby"
+                     else (segment_sum, segment_sum_ref))
+    name = "radix_groupby" if op == "groupby" else "segment_sum"
+
+    def run(vals):
+        out = kernel(ids, vals, g)
+        return out if op == "groupby" else (out,)
+    reset_launches()
+    got = run(exact)
+    assert launch_counts()[name] == -(-c // 32)
+    want = plain(ids, exact, g)
+    for x, w in zip(got, want if op == "groupby" else (want,)):
+        assert _same(x, w)
+    for x, y in zip(run(frac), run(frac)):
+        assert _same(x, y)
 
 
 # 3.5M and 4M groups exceed the 12288 x 256 ids whose block counters fit
@@ -237,6 +351,19 @@ def test_torch_backend_matches_torch_cpu(dev, qname):
     (1, 70, 200, 2, 2, 32, True, 0, 0.0, "bfloat16"),
     (1, 200, 70, 1, 1, 96, True, 0, 0.0, "bfloat16"),
     (2, 190, 190, 2, 3, 80, True, 64, 10.0, "bfloat16"),
+    # fp32 at every head dim, crossing its tile edges (128 query rows, 64
+    # keys; 256 / 32 at hd 8; 128 / 32 at hd 128; 64 / 32 at hd 256)
+    (2, 257, 257, 4, 1, 80, True, 0, 0.0, "float32"),
+    (2, 190, 190, 2, 3, 80, True, 64, 10.0, "float32"),
+    (2, 300, 300, 2, 4, 128, True, 100, 30.0, "float32"),
+    (1, 200, 200, 2, 1, 128, True, 50, 0.0, "float32"),
+    (1, 77, 213, 1, 2, 256, False, 0, 0.0, "float32"),
+    (1, 130, 130, 1, 2, 256, True, 0, 0.0, "float32"),
+    (1, 100, 20, 1, 2, 8, False, 10, 0.0, "float32"),     # rows fully masked
+    (1, 300, 300, 1, 2, 8, True, 0, 5.0, "float32"),
+    (1, 70, 200, 2, 2, 32, True, 0, 0.0, "float32"),
+    (1, 200, 70, 1, 1, 96, True, 0, 0.0, "float32"),
+    (1, 100, 150, 2, 1, 64, False, 0, 0.0, "float32"),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, Sq, Skv, Kh, G, hd,
                                               causal, window, softcap,
@@ -355,12 +482,18 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros((1, 4, 1, 1, 24), device=dev)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q[:, :, :, 0], q[:, :, :, 0].contiguous())
-    # the bf16 kernel copies 16-byte rows
+    # the bf16 kernel copies 16-byte pieces
     flat = torch.zeros(4 * 16 + 1, dtype=torch.bfloat16, device=dev)
     qb = flat[1:].view(1, 4, 1, 1, 16)
     kb = torch.zeros((1, 4, 1, 16), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention(qb, kb, kb)
+    # so does the fp32 kernel
+    flat = torch.zeros(4 * 16 + 1, device=dev)
+    qf = flat[1:].view(1, 4, 1, 1, 16)
+    kf = torch.zeros((1, 4, 1, 16), device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(qf, kf, kf)
     z = torch.zeros((1, 4, 8), device=dev)
     s = torch.zeros((1, 4, 33), device=dev)
     with pytest.raises(ValueError, match="state size"):

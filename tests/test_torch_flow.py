@@ -100,6 +100,42 @@ def test_fused_q41_counters_equal_reference(engine, data):
     assert trun.d2h_bytes == rrun.d2h_bytes
 
 
+@pytest.mark.parametrize("engine", ["optimized", "streaming"])
+def test_packed_probe_tables_add_no_transfer(engine, data):
+    """Each Lookup's hash table is packed for the probe kernel on the
+    device, from the slot arrays already uploaded: the fused Q4.1's
+    transfer counters, dimension uploads included, stay the jax backend's,
+    and every probed table keeps its packed copy alone."""
+    from repro_torch.kernels.hash_join import PackedTable, hash_build
+    td, rd = data
+    port_engine, ref_engine = ENGINES[engine]
+    tq, rq = queries.build_q4(td), ref_queries.build_q4(rd)
+    lookups = [c for c in tq.flow.vertices.values()
+               if type(c).__name__ == "Lookup"]
+    with cache_stats_scope() as ts:
+        port_engine(tq.flow, OptimizeOptions(
+            backend="torch_cpu", fuse_segments=True, num_splits=4)).run()
+    with ref_stats_scope() as rs:
+        ref_engine(rq.flow, RefOptions(
+            backend="jax", fuse_segments=True, num_splits=4)).run()
+    got, want = ts.snapshot(), rs.snapshot()
+    for name in ("h2d_transfers", "h2d_bytes", "d2h_transfers", "d2h_bytes",
+                 "dim_h2d_transfers", "dim_h2d_bytes"):
+        assert got[name] == want[name], name
+    assert len(lookups) == 4
+    for lk in lookups:
+        ht = lk.dim.__dict__["_torch_hash_cache"]["cpu"]
+        assert sorted(ht) == ["max_probes", "packed"]
+        packed = ht["packed"]
+        assert isinstance(packed, PackedTable)
+        built = hash_build((np.asarray(lk.dim.keys),))
+        assert ht["max_probes"] == built["max_probes"]
+        np.testing.assert_array_equal(packed.slots[:, 0].numpy(),
+                                      built["slot_keys"][0])
+        np.testing.assert_array_equal(packed.slots[:, 1].numpy(),
+                                      built["slot_idx"])
+
+
 def test_torch_backend_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device; the test checks the "

@@ -76,8 +76,9 @@ def _probe_both(cols, probes):
     interpret-mode Pallas kernel, as numpy arrays."""
     built = hj.hash_build(cols)
     t_idx, t_found = hj.hash_probe(
-        tuple(_t(k.astype(np.int32)) for k in built["slot_keys"]),
-        _t(built["slot_idx"]),
+        hj.pack_table(tuple(_t(k.astype(np.int32))
+                            for k in built["slot_keys"]),
+                      _t(built["slot_idx"])),
         tuple(_t(p.astype(np.int32)) for p in probes),
         built["max_probes"])
     r_idx, r_found = ref_hj.hash_probe(
@@ -136,7 +137,8 @@ def test_hash_probe_first_occurrence_is_searchsorted():
     probes = np.arange(-5, 520).astype(np.int64)
     built = hj.hash_build((keys,))
     idx, found = hj.hash_probe(
-        (_t(built["slot_keys"][0].astype(np.int32)),), _t(built["slot_idx"]),
+        hj.pack_table((_t(built["slot_keys"][0].astype(np.int32)),),
+                      _t(built["slot_idx"])),
         (_t(probes.astype(np.int32)),), built["max_probes"])
     ss = np.clip(np.searchsorted(keys, probes), 0, len(keys) - 1)
     hit = keys[ss] == probes
@@ -208,9 +210,9 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
     radix_groupby(ids, vals, 2)
     segment_sum(ids, vals, 2)
     built = hj.hash_build((np.arange(10, dtype=np.int64),))
-    args = ((_t(built["slot_keys"][0].astype(np.int32)),),
-            _t(built["slot_idx"]), (_t(np.arange(4, dtype=np.int32)),),
-            built["max_probes"])
+    args = (hj.pack_table((_t(built["slot_keys"][0].astype(np.int32)),),
+                          _t(built["slot_idx"])),
+            (_t(np.arange(4, dtype=np.int32)),), built["max_probes"])
     hj.hash_probe(*args)
     assert launch_counts() == {"hash_probe": 0, "radix_groupby": 0,
                                "segment_sum": 0, "flash_attention": 0,
@@ -288,3 +290,144 @@ def test_grouped_sum_plan_sizes():
     assert gs.plan(10, 4, gs.MAX_COLS, True).direct
     with pytest.raises(ValueError, match="value columns"):
         gs.plan(10, 4, gs.MAX_COLS + 1, False)
+
+
+# ------------------------------------------------- the column-batching loop
+def _plain_batch(ids, vals, g, with_counts):
+    """The plain versions: radix groupby with the counts, segment sum
+    without."""
+    if with_counts:
+        return radix_groupby(ids, vals, g, impl="reference")
+    return segment_sum(ids, vals, g, impl="reference"), None
+
+
+@pytest.mark.parametrize("c", [40, 65])
+@pytest.mark.parametrize("with_counts", [True, False])
+def test_column_batches_equal_one_plain_call(c, with_counts):
+    """More than MAX_COLS value columns go through the wrapper's loop in
+    batches of MAX_COLS, counts with the first batch only, each batch
+    reading its column slice of the values and writing its column slice of
+    the one output in place: sums and counts bit-identical to one plain
+    call over every column."""
+    from repro_torch.kernels import _grouped_sum as gs
+    n, g = 3_000, 147
+    ids = _t(RNG.integers(-1, g + 2, n).astype(np.int32))   # with padding
+    vals = _t(RNG.normal(size=(n, c)).astype(np.float32) * 1e3)
+    calls, outs = [], []
+
+    def batch(i, v, groups, counts, out):
+        c0 = len(calls) * gs.MAX_COLS
+        assert v.data_ptr() == vals[:, c0:].data_ptr()       # a slice
+        calls.append((v.shape[1], counts))
+        outs.append((c0, out))
+        part, got = _plain_batch(i, v, groups, counts)
+        out.copy_(part)
+        return out, got
+    sums, counts = gs.in_column_batches(batch, ids, vals, g, with_counts)
+    want, want_counts = _plain_batch(ids, vals, g, with_counts)
+    widths = [min(gs.MAX_COLS, c - c0) for c0 in range(0, c, gs.MAX_COLS)]
+    assert calls == [(w, with_counts and i == 0)
+                     for i, w in enumerate(widths)]
+    for c0, out in outs:                      # slices of the one output
+        assert out.data_ptr() == sums[:, c0:].data_ptr()
+    assert sums.dtype == want.dtype and sums.shape == want.shape
+    assert torch.equal(sums, want)
+    if with_counts:
+        assert counts.dtype == want_counts.dtype
+        assert torch.equal(counts, want_counts)
+    else:
+        assert counts is None
+
+
+# ------------------------------------------------------ the packed table
+def _built(n_keys, d=400, dup=False):
+    rows = np.unique(RNG.integers(-60, 60, size=(d, n_keys)), axis=0)
+    RNG.shuffle(rows)
+    if dup:
+        rows = np.concatenate([rows, rows[: len(rows) // 3]])
+    cols = tuple(rows[:, j].astype(np.int64) for j in range(n_keys))
+    built = hj.hash_build(cols)
+    sk = tuple(_t(k.astype(np.int32)) for k in built["slot_keys"])
+    return rows, built, sk, _t(built["slot_idx"])
+
+
+@pytest.mark.parametrize("n_keys", [1, 2, 3, 4])
+def test_pack_table_layout(n_keys):
+    """Slot s of the packed table: its key columns, then its row index
+    (< 0: empty), then zeros, in 2, 4, 4 or 8 int32 words (8, 16, 16 or 32
+    bytes)."""
+    _, built, sk, si = _built(n_keys)
+    packed = hj.pack_table(sk, si)
+    size = built["table_size"]
+    width = hj.SLOT_WORDS[n_keys]
+    assert width * 4 in (8, 16, 32) and width > n_keys
+    assert packed.n_keys == n_keys and packed.size == size
+    assert packed.slots.dtype == torch.int32 and packed.slots.is_contiguous()
+    assert tuple(packed.slots.shape) == (size, width)
+    s = packed.slots.numpy()
+    for c in range(n_keys):
+        np.testing.assert_array_equal(s[:, c], built["slot_keys"][c])
+    np.testing.assert_array_equal(s[:, n_keys], built["slot_idx"])
+    assert not s[:, n_keys + 1:].any()
+    with pytest.raises(ValueError, match="int32"):
+        hj.pack_table(tuple(k.long() for k in sk), si)
+
+
+@pytest.mark.parametrize("case", ["not_pow2", "five_keys", "no_keys",
+                                  "int64_keys", "ragged", "two_dims"])
+def test_pack_table_refuses_bad_tables(case):
+    """pack_table validates a table once, for every later probe: a power-of-
+    two int32 slot array a key column (1-4) and the rows, all one length."""
+    si = torch.full((64,), -1, dtype=torch.int32)
+    keys, rows, match = (si,), si, "power of two"
+    if case == "not_pow2":
+        keys, rows = (si[:48],), si[:48]
+    elif case == "five_keys":
+        keys, match = (si,) * 5, "1..4 key columns"
+    elif case == "no_keys":
+        keys, match = (), "1..4 key columns"
+    elif case == "int64_keys":
+        keys, match = (si.long(),), "int32"
+    elif case == "ragged":
+        keys, match = (si[:32],), "int32"
+    else:
+        rows = si.reshape(8, 8)
+    with pytest.raises(ValueError, match=match):
+        hj.pack_table(keys, rows)
+    assert hj.pack_table((si,), si).size == 64          # the good table
+
+
+@pytest.mark.parametrize("case", ["one_key", "two_keys", "three_keys",
+                                  "four_keys", "duplicates", "all_miss",
+                                  "empty_probe", "short_probe_limit"])
+def test_packed_probe_matches_reference_interpret(case):
+    """The plain probe over the packed table gives the plain probe's and
+    the reference's interpret-mode (idx, found), byte for byte."""
+    n_keys = {"two_keys": 2, "three_keys": 3, "four_keys": 4}.get(case, 1)
+    rows, built, sk, si = _built(n_keys, dup=case == "duplicates")
+    n = 0 if case == "empty_probe" else 1_003
+    probes = RNG.integers(-65, 65, size=(n, n_keys))
+    if case == "all_miss":
+        probes = probes + 1_000
+    else:
+        hit = RNG.random(n) < 0.6
+        probes[hit] = rows[RNG.integers(0, len(rows), int(hit.sum()))]
+    mp = 2 if case == "short_probe_limit" else built["max_probes"]
+    vals = tuple(_t(probes[:, j].astype(np.int32)) for j in range(n_keys))
+    packed = hj.pack_table(sk, si)
+    got = hj.hash_probe(packed, vals, mp)
+    direct = hj.hash_probe_packed_ref(packed.slots, n_keys, vals, mp)
+    plain = hj.hash_probe_ref(sk, si, vals, mp)
+    r_idx, r_found = ref_hj.hash_probe(
+        tuple(jnp.asarray(k) for k in built["slot_keys"]),
+        jnp.asarray(built["slot_idx"]),
+        tuple(jnp.asarray(probes[:, j].astype(np.int64))
+              for j in range(n_keys)), mp, impl="interpret")
+    for idx, found in (got, direct, plain):
+        assert idx.dtype == torch.int32 and found.dtype == torch.bool
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(r_idx))
+        np.testing.assert_array_equal(found.numpy(), np.asarray(r_found))
+    if case == "all_miss":
+        assert not got[1].any()
+    elif n:
+        assert got[1].any()
