@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py                 # all phases
     python3 chip_smoke.py --profile       # all phases + profiled Q4.1 run,
-                                          # LM prefill and decode step
+                                          # served Q4.1 tick, LM prefill
+                                          # and decode step
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -25,14 +26,24 @@ Phases (any failure raises and the script exits non-zero):
    its device time taken after every other event time (a profiler session
    slows later launches on the host).  fp32 flash attention runs
    at every head dim.
-3. ETL main path: SSB scale factor 1 (seed 42) through the port's engines on
-   backend ``torch`` with segment fusion: Q4.1 on OptimizedEngine and
-   StreamingEngine, Q1.1 on OptimizedEngine.  Each run is checked against
-   the query's float64 oracle and repeated (the second run must be
-   byte-identical).  The launch counters are set to 0 just before the
-   path's first run and read after its last.
-   Then a keyed Aggregate with 40 sum outputs, more than one grouped-sum
-   launch takes, on ``torch`` against ``torch_cpu``.
+3. ETL main path: SSB scale factor 1 (seed 42) through
+   ``repro_torch.Session.run`` on backend ``torch`` with segment fusion:
+   Q4.1 on the optimized and streaming engines, Q4.1s (Q4.1 cut into two
+   streamed trees by a StageBoundary) on the streaming one, Q1.1 on the
+   optimized one.
+   Each run is checked against the query's float64 oracle and repeated (the
+   second run must be byte-identical).  The launch counters are set to 0
+   just before the path's first run and read after its last.  Then SF1
+   Q4.1 once on each copy-everywhere baseline (``ordinary``, ``kettle``)
+   against the oracle, and the four engines' walls and rows/s.
+   Then served Q4.1: the declarative Q4.1 flow through ``Session.serve``,
+   SF1's lineorder in 12 ticks and an empty one; the replayed deltas must
+   equal a batch run of the flow, each tick must go through the probe (4 x
+   chunks launches) and, with rows, the radix groupby; warm ticks must
+   compile and upload nothing, and no tick may be retried or dead-lettered.
+   Its launches are counted from 0 on their own and added to the kernels
+   line's.  Then a keyed Aggregate with 40 sum outputs, more than one
+   grouped-sum launch takes, on ``torch`` against ``torch_cpu``.
 4. LM serving path, once for stablelm-3b and once for falcon-mamba-7b at
    their full published widths (``configs/<arch>.CONFIG``, random weights
    from a seed): ``BatchedServer`` serves 8 requests (waves of 4, prompts of
@@ -762,34 +773,39 @@ def check_oracle(got: dict, expect: dict, rtol: float, label: str) -> None:
 
 
 def run_main(data, expect: dict) -> dict:
-    """Every run of the main path, with the launch counters set to 0 once
-    before the first and read after the last; returns the total launches
-    per kernel."""
-    from repro_torch.core import (OptimizedEngine, OptimizeOptions,
-                                  StreamingEngine, resolve_backend)
-    from repro_torch.etl.queries import build_q1, build_q4
+    """Every run of the main path, through ``Session.run``, with the launch
+    counters set to 0 once before the first and read after the last;
+    returns the total launches per kernel and the Q4.1 walls by engine."""
+    import repro_torch
+    from repro_torch.core import resolve_backend
+    from repro_torch.etl.queries import build_q1, build_q4, build_q4_staged
     from repro_torch.kernels import launch_counts, reset_launches
     rtol = resolve_backend("torch").oracle_rtol
-    opts = OptimizeOptions(backend="torch", fuse_segments=True, num_splits=8)
+    session = repro_torch.Session(backend="torch")
     rows = len(data.lineorder["lo_orderkey"])
+    walls: dict = {}
     torch.cuda.synchronize()
     reset_launches()
-    for qname, build, engine in (("Q4.1", build_q4, OptimizedEngine),
-                                 ("Q4.1", build_q4, StreamingEngine),
-                                 ("Q1.1", build_q1, OptimizedEngine)):
+    # Q4.1s: Q4.1 with a StageBoundary after its lookups, two trees that
+    # stream into each other; its oracle is Q4.1's
+    for qname, build, engine in (("Q4.1", build_q4, "optimized"),
+                                 ("Q4.1", build_q4, "streaming"),
+                                 ("Q4.1s", build_q4_staged, "streaming"),
+                                 ("Q1.1", build_q1, "optimized")):
         results = []
         for attempt in (1, 2):
             q = build(data)
             n_lookups = sum(type(c).__name__ == "Lookup"
                             for c in q.flow.vertices.values())
             before = launch_counts()
-            run = engine(q.flow, opts).run()
+            res = session.run(q, engine=engine, fuse=True, num_splits=8)
+            run = res.run
             torch.cuda.synchronize()
             after = launch_counts()
             counts = {k: after[k] - before[k] for k in after}
-            got = q.sink.result()
+            got = res.table
             label = f"{qname}/{run.engine}#{attempt}"
-            check_oracle(got, expect[qname], rtol, label)
+            check_oracle(got, expect[qname[:4]], rtol, label)
             if run.degradations != 0:
                 raise AssertionError(f"{label}: {run.degradations} "
                                      f"degradations")
@@ -798,26 +814,207 @@ def run_main(data, expect: dict) -> dict:
                 raise AssertionError(
                     f"{label}: hash_probe launched {counts['hash_probe']} "
                     f"times, expected {n_lookups} lookups x {chunks} chunks")
-            need = "radix_groupby" if qname == "Q4.1" else "segment_sum"
+            need = ("radix_groupby" if qname.startswith("Q4.1")
+                    else "segment_sum")
             if counts[need] < 1:
                 raise AssertionError(f"{label}: {need} never launched")
-            log(f"  {label}: wall={run.wall_time:.3f}s "
-                f"rows/s={rows / run.wall_time:.4g} h2d={run.h2d_transfers} "
+            log(f"  {label}: wall={run.wall_time:.4f}s "
+                f"rows/s={rows / run.wall_time:.6g} h2d={run.h2d_transfers} "
                 f"h2d_bytes={run.h2d_bytes} d2h={run.d2h_transfers} "
                 f"d2h_bytes={run.d2h_bytes} dispatch={run.dispatch_calls} "
                 f"degradations={run.degradations} groups="
                 f"{len(next(iter(got.values())))} launches={counts} "
                 f"oracle_rtol={rtol} ok")
+            if qname == "Q4.1":
+                walls.setdefault(engine, []).append(run.wall_time)
             results.append(got)
         first, second = results
         for k in first:
             if (first[k].dtype != second[k].dtype
                     or first[k].tobytes() != second[k].tobytes()):
-                raise AssertionError(f"{qname}/{engine.__name__}: second run "
+                raise AssertionError(f"{qname}/{engine}: second run "
                                      f"differs in {k}")
-        log(f"  {qname}/{engine.__name__}: second run byte-identical")
+        log(f"  {qname}/{engine}: second run byte-identical")
     torch.cuda.synchronize()
-    return launch_counts()
+    return launch_counts(), walls
+
+
+def run_baselines(data, expect: dict, walls: dict) -> None:
+    """SF1 Q4.1 once on each copy-everywhere baseline (``ordinary``, and
+    ``kettle``: a thread a component, a copy a hop) through
+    ``Session.run`` on the card, against the oracle; then all four engines'
+    Q4.1 walls and rows/s side by side (the paper's Kettle comparison)."""
+    import repro_torch
+    from repro_torch.core import resolve_backend
+    from repro_torch.etl.queries import build_q4
+    from repro_torch.kernels import launch_counts
+    rtol = resolve_backend("torch").oracle_rtol
+    rows = len(data.lineorder["lo_orderkey"])
+    session = repro_torch.Session(backend="torch")
+    for engine in ("ordinary", "kettle"):
+        before = launch_counts()
+        res = session.run(build_q4(data), engine=engine)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        run = res.run
+        label = f"Q4.1/{engine}"
+        check_oracle(res.table, expect["Q4.1"], rtol, label)
+        if run.degradations != 0:
+            raise AssertionError(f"{label}: {run.degradations} degradations")
+        for k in ("hash_probe", "radix_groupby"):
+            if after[k] - before[k] < 1:
+                raise AssertionError(f"{label}: {k} never launched")
+        log(f"  {label}: wall={run.wall_time:.4f}s "
+            f"rows/s={rows / run.wall_time:.6g} copies={run.copies} "
+            f"h2d={run.h2d_transfers} d2h={run.d2h_transfers} "
+            f"dispatch={run.dispatch_calls} launches="
+            f"{ {k: after[k] - before[k] for k in after} } "
+            f"oracle_rtol={rtol} ok")
+        walls[engine] = [run.wall_time]
+    log("  Q4.1 on four engines (SF1, torch; ordinary and kettle: one run; "
+        "optimized and streaming: fused, 8 splits, the better of two runs):")
+    for engine in ("ordinary", "kettle", "optimized", "streaming"):
+        w = min(walls[engine])
+        log(f"    {engine:10s} wall={w:.4f}s rows/s={rows / w:.6g}")
+
+
+# ---------------------------------------------------------------------------
+#  Phase 3b: served Q4.1
+# ---------------------------------------------------------------------------
+#: micro-batches the served phase splits SF1's lineorder into; an empty tick
+#: goes in after the EMPTY_AFTER-th
+SERVE_TICKS = 12
+EMPTY_AFTER = 6
+
+
+def served_q41_flow(data, sort: bool = False):
+    """SSB Q4.1 through ``repro_torch.flow``, as the declarative example
+    (``examples/declarative_q41.py``) builds it.  Without its sort, the flow
+    ends in its Aggregate, as a serving flow must, and its source holds only
+    the schema; with it, the source holds all of lineorder for a batch run."""
+    import repro_torch
+    from repro_torch.etl import DimTable
+    from repro_torch.etl.ssb import mfgr_id, region_id
+    col = repro_torch.col
+    AMERICA = region_id("AMERICA")
+    M1, M2 = mfgr_id("MFGR#1"), mfgr_id("MFGR#2")
+    cust = DimTable(data.customer["c_custkey"],
+                    {"c_nation": data.customer["c_nation"]},
+                    row_filter=data.customer["c_region"] == AMERICA)
+    supp = DimTable(data.supplier["s_suppkey"],
+                    {"s_nation": data.supplier["s_nation"]},
+                    row_filter=data.supplier["s_region"] == AMERICA)
+    part = DimTable(data.part["p_partkey"], {"p_mfgr": data.part["p_mfgr"]},
+                    row_filter=((data.part["p_mfgr"] == M1)
+                                | (data.part["p_mfgr"] == M2)))
+    date = DimTable(data.date["d_datekey"], {"d_year": data.date["d_year"]})
+    source = (data.lineorder if sort else
+              {c: a[:0] for c, a in data.lineorder.items()})
+    b = (repro_torch.flow("q4.1-declarative")
+         .source(source, name="lineorder")
+         .lookup(cust, "lo_custkey", {"c_nation": "c_nation"})
+         .lookup(supp, "lo_suppkey", {"s_nation": "s_nation"})
+         .lookup(part, "lo_partkey", {"p_mfgr": "p_mfgr"})
+         .lookup(date, "lo_orderdate", {"d_year": "d_year"})
+         .filter((col("c_nation") >= 0) & (col("s_nation") >= 0)
+                 & (col("p_mfgr") >= 0) & (col("d_year") >= 0))
+         .project("d_year", "c_nation", "lo_revenue", "lo_supplycost")
+         .derive("profit", col("lo_revenue") - col("lo_supplycost"))
+         .aggregate(["d_year", "c_nation"], {"profit": ("profit", "sum")}))
+    return (b.sort(["d_year", "c_nation"]) if sort else b).sink()
+
+
+def phase_served_q41(data, expect: dict, profile: bool) -> dict:
+    """SF1's lineorder served through ``Session.serve`` in SERVE_TICKS
+    micro-batches plus one empty tick, fused, 8 splits, on ``torch``.  The
+    replayed deltas must equal a batch ``Session.run`` of the same flow with
+    its sort (keys, order, dtypes; profit within oracle_rtol of it and of
+    the oracle); each tick must probe 4 x chunks times and reduce with the
+    radix groupby when it has rows; warm ticks compile and upload nothing;
+    the empty tick emits nothing; no tick is retried or dead-lettered.
+    Returns the phase's launches, counted from 0 just before its first tick
+    and read after its last."""
+    import repro_torch
+    from repro_torch.core import resolve_backend
+    from repro_torch.kernels import launch_counts, reset_launches
+    rtol = resolve_backend("torch").oracle_rtol
+    session = repro_torch.Session(backend="torch", metadata=None)
+    batch = session.run(served_q41_flow(data, sort=True), engine="streaming",
+                        fuse=True, num_splits=8)
+    check_oracle(batch.table, expect["Q4.1"], rtol, "served Q4.1/batch")
+    n = len(data.lineorder["lo_orderkey"])
+    ticks = [{c: a[idx] for c, a in data.lineorder.items()}
+             for idx in np.array_split(np.arange(n), SERVE_TICKS)]
+    ticks.insert(EMPTY_AFTER, {c: a[:0] for c, a in data.lineorder.items()})
+    results, per_tick = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    t_session = time.perf_counter()
+    with session.serve(served_q41_flow(data), fuse=True,
+                       num_splits=8) as srv:
+        for i, cols in enumerate(ticks):
+            before = launch_counts()
+            if profile and i == SERVE_TICKS // 2 + 2:
+                profile_device(f"served Q4.1 tick {i} (warm)",
+                               lambda: results.append(srv.tick(cols)))
+            else:
+                results.append(srv.tick(cols))
+            torch.cuda.synchronize()
+            after = launch_counts()
+            per_tick.append({k: after[k] - before[k] for k in after})
+        chunk_rows = srv.engine.runtime_plan.chunk_rows
+    session_s = time.perf_counter() - t_session
+    launches = launch_counts()
+    for t, counts in zip(results, per_tick):
+        label = f"served Q4.1 tick {t.tick}"
+        if t.retries or t.dead_lettered:
+            raise AssertionError(f"{label}: retries={t.retries} "
+                                 f"dead_lettered={t.dead_lettered}")
+        chunks = -(-t.rows_in // chunk_rows)
+        if counts["hash_probe"] != 4 * chunks:
+            raise AssertionError(f"{label}: hash_probe launched "
+                                 f"{counts['hash_probe']} times, expected "
+                                 f"4 lookups x {chunks} chunks")
+        if t.rows_in and counts["radix_groupby"] < 1:
+            raise AssertionError(f"{label}: radix_groupby never launched")
+        cs = t.cache_stats
+        if t.tick > 0 and (cs["segment_compiles"] or cs["dim_h2d_transfers"]):
+            raise AssertionError(f"{label}: warm tick compiled "
+                                 f"{cs['segment_compiles']} segments and "
+                                 f"uploaded {cs['dim_h2d_transfers']} "
+                                 f"dimension arrays")
+        if t.rows_in == 0 and t.rows_out != 0:
+            raise AssertionError(f"{label}: the empty tick emitted "
+                                 f"{t.rows_out} rows")
+        log(f"  {label}: rows_in={t.rows_in} rows_out={t.rows_out} "
+            f"wall={t.wall_s:.4f}s h2d={cs['h2d_transfers']} "
+            f"d2h={cs['d2h_transfers']} segment_compiles="
+            f"{cs['segment_compiles']} dim_h2d={cs['dim_h2d_transfers']} "
+            f"launches={counts}")
+    served = repro_torch.replay_deltas(results, group_by=["d_year",
+                                                           "c_nation"])
+    for k in ("d_year", "c_nation"):
+        if (served[k].dtype != batch.table[k].dtype
+                or served[k].tobytes() != batch.table[k].tobytes()):
+            raise AssertionError(f"served Q4.1: replayed {k} differs from "
+                                 f"the batch run")
+    if not np.allclose(served["profit"], batch.table["profit"], rtol=rtol,
+                       atol=0.0):
+        raise AssertionError(f"served Q4.1: profit beyond rtol {rtol} of the "
+                             f"batch run")
+    check_oracle(served, expect["Q4.1"], rtol, "served Q4.1/replay")
+    walls = [t.wall_s for t in results]
+    warm = [t.wall_s for t in results[1:] if t.rows_in]
+    log(f"  served Q4.1: {len(results)} ticks ({SERVE_TICKS} of "
+        f"{n // SERVE_TICKS}-{-(-n // SERVE_TICKS)} rows + 1 empty), "
+        f"chunk_rows={chunk_rows}; cold tick wall={walls[0]:.4f}s; warm "
+        f"non-empty ticks p50={statistics.median(warm):.4f}s "
+        f"max={max(warm):.4f}s; tick p50={statistics.median(walls):.4f}s "
+        f"max={max(walls):.4f}s; session {session_s:.3f}s, "
+        f"rows/s={n / session_s:.6g}; ticks' wall sum={sum(walls):.3f}s; "
+        f"replay equals the batch run, within oracle_rtol {rtol} of the "
+        f"oracle; launches={launches} ok")
+    return launches
 
 
 #: value columns of the wide Aggregate: more than the grouped sum's 32 a
@@ -925,13 +1122,15 @@ def profile_device(label: str, fn) -> None:
 
 
 def profile_q41(data) -> None:
-    """One more fused Q4.1 run on OptimizedEngine under the profiler."""
-    from repro_torch.core import OptimizedEngine, OptimizeOptions
+    """One more fused Q4.1 run on the optimized engine under the
+    profiler."""
+    import repro_torch
     from repro_torch.etl.queries import build_q4
     q = build_q4(data)
-    opts = OptimizeOptions(backend="torch", fuse_segments=True, num_splits=8)
+    session = repro_torch.Session(backend="torch", metadata=None)
     profile_device("Q4.1/optimized",
-                   lambda: OptimizedEngine(q.flow, opts).run())
+                   lambda: session.run(q, engine="optimized", fuse=True,
+                                       num_splits=8))
 
 
 # ---------------------------------------------------------------------------
@@ -1093,9 +1292,10 @@ def serve_model(arch: str, kernel: str, ref_depth: int,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one more fused Q4.1 run, and one "
-                         "prefill and one decode step of each LM (device "
-                         "busy time by kernel, idle share)")
+                    help="also profile one more fused Q4.1 run, one warm "
+                         "served Q4.1 tick, and one prefill and one decode "
+                         "step of each LM (device busy time by kernel, "
+                         "idle share)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1153,7 +1353,14 @@ def main() -> int:
     expect = {"Q4.1": build_q4(data).oracle(data),
               "Q1.1": build_q1(data).oracle(data)}
     log(f"  oracles in {time.perf_counter() - t0:.1f}s")
-    launches = run_main(data, expect)
+    launches, walls = run_main(data, expect)
+    log("Q4.1 on the copy-everywhere baselines (SSB SF1, backend torch):")
+    run_baselines(data, expect, walls)
+    log(f"served Q4.1 (SSB SF1 in {SERVE_TICKS} ticks and an empty one, "
+        f"backend torch, fused, 8 splits):")
+    served = phase_served_q41(data, expect, args.profile)
+    for k, v in served.items():
+        launches[k] += v
     if args.profile:
         profile_q41(data)
     del data

@@ -17,14 +17,27 @@ flash-attention and selective-scan kernels:
     cfg = get_config("stablelm-3b")
     BatchedServer(cfg, batch=4).run(make_requests(cfg, 8, 2048, 32))
 
-    from repro_torch.core import OptimizedEngine, OptimizeOptions
+    import repro_torch
     from repro_torch.etl import build_q4, generate
     q = build_q4(generate(lineorder_rows=100_000))
-    OptimizedEngine(q.flow, OptimizeOptions(backend="torch",
-                                            fuse_segments=True)).run()
-    q.sink.result()
+    res = repro_torch.Session(backend="torch").run(q, engine="streaming",
+                                                   fuse=True)
+    res.table                    # {column: np.ndarray}
+
+``Session.serve`` keeps a flow resident (worker pool, compiled segments,
+device dimension tables) and feeds it micro-batches tick by tick; a flow
+ending in an ``Aggregate`` emits upsert deltas (``replay_deltas``).
+CPU runs pass ``backend="torch_cpu"``.
 """
 from .core.config import snapshot as config_snapshot
+from .core.engine import ServingEngine
 from .core.expr import Col, Expr, Lit, col, lit, where
+from .session import (Flow, FlowBuilder, ServeSession, Session, SessionRun,
+                      TickResult, flow, replay_deltas)
 
-__all__ = ["Col", "Expr", "Lit", "col", "config_snapshot", "lit", "where"]
+__all__ = [
+    "Col", "Expr", "Lit", "col", "lit", "where",
+    "Flow", "FlowBuilder", "ServeSession", "ServingEngine", "Session",
+    "SessionRun", "TickResult", "flow", "replay_deltas",
+    "config_snapshot",
+]

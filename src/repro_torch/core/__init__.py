@@ -11,7 +11,7 @@ from .component import (BlockComponent, Component, ComponentType, FnComponent,
                         SemiBlockComponent, SinkComponent, SourceComponent,
                         StageBoundary)
 from .engine import (EngineRun, OptimizedEngine, OptimizeOptions,
-                     OrdinaryEngine, StreamingEngine)
+                     OrdinaryEngine, ServingEngine, StreamingEngine)
 from .executor import (ChannelGroup, ExecutionAborted, RunAbort,
                        SharedWorkerPool, StreamingExecutor, TaskFuture)
 from .expr import Col, ColumnsView, Expr, Lit, col, expr_reads, lit, where
@@ -35,6 +35,8 @@ from .scheduler import plan_schedule, run_tree_graph
 from .shared_cache import (GLOBAL_ARENA, GLOBAL_CACHE_STATS, CacheArena,
                            CacheStats, SharedCache, cache_stats_scope,
                            concat_caches)
+from .simulate import (SimResult, cpu_usage_curve, multithreading_curve,
+                       simulate_tree, speedup_curve)
 
 __all__ = [
     "config",
@@ -43,7 +45,7 @@ __all__ = [
     "BlockComponent", "Component", "ComponentType", "FnComponent",
     "SemiBlockComponent", "SinkComponent", "SourceComponent", "StageBoundary",
     "EngineRun", "OptimizedEngine", "OptimizeOptions", "OrdinaryEngine",
-    "StreamingEngine",
+    "ServingEngine", "StreamingEngine",
     "ChannelGroup", "ExecutionAborted", "RunAbort", "SharedWorkerPool",
     "StreamingExecutor", "TaskFuture",
     "Col", "ColumnsView", "Expr", "Lit", "col", "expr_reads", "lit", "where",
@@ -63,4 +65,6 @@ __all__ = [
     "plan_schedule", "run_tree_graph",
     "GLOBAL_ARENA", "GLOBAL_CACHE_STATS", "CacheArena", "CacheStats",
     "SharedCache", "cache_stats_scope", "concat_caches",
+    "SimResult", "cpu_usage_curve", "multithreading_curve", "simulate_tree",
+    "speedup_curve",
 ]

@@ -26,6 +26,8 @@ Every setting also has a first-class API equivalent (see the README table):
     REPRO_FLOW_STYLE     etl.queries builders' use_dsl= argument
     REPRO_TRACE          repro_torch.obs.trace.trace_scope() (explicit scoping)
     REPRO_TRACE_PATH     repro_torch.obs.trace.export_run() target path
+    REPRO_SERVE_STRICT_WATERMARK  ServeSession.tick(watermark=...) contract
+    REPRO_SERVE_HISTORY  ServeSession.history retention
     REPRO_FAULTS         core.faults.fault_scope(FaultPlan.parse(...))
     REPRO_RETRY_MAX      core.faults.retry_call(max_retries=...)
     REPRO_RETRY_BACKOFF  core.faults.retry_call(backoff=...)
@@ -78,12 +80,19 @@ ENV_TRACE_PATH = "REPRO_TRACE_PATH"
 #: file retains; oldest events/runs rotate out so a resident serving session
 #: stays bounded (0 disables the cap)
 ENV_TRACE_MAX_EVENTS = "REPRO_TRACE_MAX_EVENTS"
+#: "0" relaxes the serving watermark contract from strict (a regressing
+#: watermark raises) to clamping (a regressing watermark is lifted to the
+#: session high-water mark)
+ENV_SERVE_STRICT_WATERMARK = "REPRO_SERVE_STRICT_WATERMARK"
+#: number of recent per-tick wall times a ServeSession retains for its
+#: closing p50/p99 summary
+ENV_SERVE_HISTORY = "REPRO_SERVE_HISTORY"
 #: deterministic fault-injection plan for the whole process, in the
 #: ``core.faults`` rule grammar (e.g. "seed=7;chunk:count=2;kernel:count=1");
 #: unset => no injection
 ENV_FAULTS = "REPRO_FAULTS"
-#: max retries for a transient failure (chunk replay, run re-execution)
-#: before it escalates; 0 disables retrying
+#: max retries for a transient failure (chunk replay, run re-execution,
+#: serve-tick retry) before it escalates; 0 disables retrying
 ENV_RETRY_MAX = "REPRO_RETRY_MAX"
 #: initial retry backoff in seconds (doubles per attempt, capped at
 #: ``core.faults.RETRY_BACKOFF_CAP_S``)
@@ -95,8 +104,11 @@ ENV_SHARDS = "REPRO_SHARDS"
 
 DEFAULT_TRACE_PATH = "repro_trace.json"
 DEFAULT_TRACE_MAX_EVENTS = 200_000
+DEFAULT_SERVE_HISTORY = 4096
 DEFAULT_RETRY_MAX = 3
 DEFAULT_RETRY_BACKOFF_S = 0.05
+#: bound on a ServeSession's dead-letter buffer (oldest entries drop)
+DEAD_LETTER_MAX = 256
 
 DEFAULT_ARENA_MAX_MB = 256
 FLOW_STYLES = ("dsl", "lambda")
@@ -213,6 +225,22 @@ def trace_max_events() -> int:
     return max(0, n)
 
 
+def serve_strict_watermark() -> bool:
+    """Serving watermark contract: strict (default — a tick whose watermark
+    regresses below the session high-water mark raises) or clamping
+    (``REPRO_SERVE_STRICT_WATERMARK=0`` — regressions are lifted to the
+    high-water mark)."""
+    return _raw(ENV_SERVE_STRICT_WATERMARK) != "0"
+
+
+def serve_history() -> int:
+    """Per-tick wall-time samples a ServeSession retains for its closing
+    p50/p99 summary (``REPRO_SERVE_HISTORY``, default 4096)."""
+    v = _raw(ENV_SERVE_HISTORY)
+    n = int(v) if v is not None else DEFAULT_SERVE_HISTORY
+    return max(1, n)
+
+
 def faults_spec() -> Optional[str]:
     """The process-wide fault-injection plan spec (``REPRO_FAULTS``), or
     ``None`` when no injection is configured."""
@@ -261,6 +289,8 @@ def snapshot() -> Dict[str, object]:
         "trace": trace_enabled(),
         "trace_path": trace_path(),
         "trace_max_events": trace_max_events(),
+        "serve_strict_watermark": serve_strict_watermark(),
+        "serve_history": serve_history(),
         "faults": faults_spec(),
         "retry_max": retry_max(),
         "retry_backoff": retry_backoff(),

@@ -17,10 +17,15 @@ on: bounded channels replace accumulate-then-start on every tree->tree edge,
 so a downstream tree whose root is row-synchronized (an explicit
 StageBoundary) consumes splits as they arrive and overlaps with its
 upstream; block / semi-block roots keep accumulate-then-finish semantics.
+
+`ServingEngine` — the resident loop behind ``Session.serve``: plans once,
+keeps one worker pool across micro-batches and runs one streaming executor
+per tick over the same components.
 """
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
 
@@ -28,7 +33,7 @@ from ..obs import trace as obs_trace
 from . import config, faults
 from .backend import Backend, resolve_backend
 from .component import ComponentType, SourceComponent
-from .executor import StreamingExecutor
+from .executor import SharedWorkerPool, StreamingExecutor
 from .graph import Dataflow
 from .metadata import MetadataStore
 from .partitioner import ExecutionTreeGraph, partition
@@ -506,3 +511,182 @@ class StreamingEngine(OptimizedEngine):
                  metadata: Optional["MetadataStore"] = None):
         options = replace(options or OptimizeOptions(), streaming=True)
         super().__init__(flow, options, metadata=metadata)
+
+
+# --------------------------------------------------------------------------
+#  Serving engine (resident micro-batch loop for Session.serve)
+# --------------------------------------------------------------------------
+class ServingEngine:
+    """Resident execution loop behind ``Session.serve``: partition and plan
+    ONCE (on the first tick, when the ticking source has data to size
+    against), keep one ``SharedWorkerPool`` alive across micro-batches, and
+    run each tick as a fresh — but cheap — ``StreamingExecutor`` over the
+    SAME flow objects.  Because compiled segment runners, device-resident
+    DimTables with their packed hash tables, and arena buffers all live on
+    the components (or the global arena), not on the executor, warm ticks
+    reuse every piece of state a batch engine rebuilds per run.
+
+    Terminal ``Aggregate`` components are switched into serving mode
+    (incremental per-group partials, upsert deltas) for the lifetime of the
+    loop; ``close()`` switches them back and releases the pool."""
+
+    engine_name = "serving"
+
+    def __init__(self, flow: Dataflow,
+                 options: Optional[OptimizeOptions] = None,
+                 metadata: Optional["MetadataStore"] = None):
+        self.flow = flow
+        self.options = options or OptimizeOptions()
+        self.metadata = metadata
+        self.g_tau: Optional[ExecutionTreeGraph] = None
+        self.runtime_plan: Optional[RuntimePlan] = None
+        self.backend: Optional[Backend] = None
+        self.pool: Optional[SharedWorkerPool] = None
+        self.tracer = None
+        self.ticks = 0
+        self._started = False
+        self._closed = False
+        self._serving_aggs: list = []
+
+    # ------------------------------------------------------------ validation
+    def _validate_serving_flow(self) -> None:
+        """Serving supports row-synchronized chains plus TERMINAL aggregates
+        (feeding sinks only).  Other block/semi-block components (Sort,
+        Union, Merge) have no incremental upsert semantics — their finish()
+        needs the whole input, which an unbounded source never yields."""
+        for name, comp in self.flow.vertices.items():
+            if hasattr(comp, "begin_serving"):
+                bad = [u for u in self.flow.succ(name)
+                       if self.flow.component(u).ctype
+                       is not ComponentType.SINK]
+                if bad:
+                    raise ValueError(
+                        f"serve(): aggregate {name!r} must feed sinks only "
+                        f"(feeds {bad}) — per-tick upsert deltas cannot "
+                        f"drive further blocking components")
+            elif comp.ctype in (ComponentType.BLOCK,
+                                ComponentType.SEMI_BLOCK):
+                raise ValueError(
+                    f"serve(): {type(comp).__name__} {name!r} is a "
+                    f"{comp.ctype.value} component without incremental "
+                    f"semantics; serving flows support row-synchronized "
+                    f"chains and terminal Aggregates")
+
+    # ----------------------------------------------------------- first tick
+    def _start(self) -> None:
+        opts = self.options
+        if opts.optimize_level >= 2:
+            raise ValueError(
+                "serve() supports optimize_level<=1: the adaptive optimizer "
+                "calibrates on a bounded source prefix, which an unbounded "
+                "ticking source does not have")
+        if opts.shards is not None and opts.shards > 1:
+            # explicit request only — ambient REPRO_SHARDS is ignored here,
+            # since the resident tick loop is already incremental and the
+            # multi-pass shard protocol assumes a bounded batch input
+            raise ValueError("serve() does not support sharded execution; "
+                             "drop shards= for serving sessions")
+        self.flow.validate()
+        self.flow.reset_stats()
+        bk = self.backend = resolve_backend(opts.backend)
+        _assign_backend(self.flow, bk)
+        if opts.fusion_enabled():
+            from .optimizer import fuse_segments_flow
+            fuse_segments_flow(self.flow)
+            _assign_backend(self.flow, bk)   # fusion adds components
+        self._validate_serving_flow()
+        with obs_trace.span("phase", "plan"):
+            self.g_tau = partition(self.flow)
+            self.runtime_plan = plan_runtime(
+                self.flow, self.g_tau,
+                num_splits=opts.num_splits,
+                m_prime=opts.pipeline_degree or opts.num_splits,
+                mt_threads=opts.mt_threads, cores=opts.cores,
+                pool_width=opts.pool_width,
+                channel_capacity=opts.channel_capacity,
+                streaming=opts.streaming and opts.concurrent_trees,
+                backend=bk)
+        self.pool = SharedWorkerPool(self.runtime_plan.pool_width,
+                                     name=f"{self.flow.name}-serve")
+        for comp in self.flow.vertices.values():
+            if hasattr(comp, "begin_serving"):
+                comp.begin_serving()
+                self._serving_aggs.append(comp)
+        if self.metadata is not None:
+            # the session registers once at start — NOT once per tick, which
+            # would grow the store without bound under a resident loop
+            self.metadata.register_flow(self.flow)
+            self.metadata.register_partitioning(self.flow, self.g_tau)
+            self.metadata.register_runtime_plan(self.flow, self.runtime_plan)
+        self._started = True
+
+    # ----------------------------------------------------------------- tick
+    def tick(self, watermark_lag: Optional[float] = None) -> Dict[str, object]:
+        """Run one micro-batch over the source's CURRENT table.  Returns the
+        tick's wall time and its exact per-tick ``CacheStats`` snapshot."""
+        if self._closed:
+            raise RuntimeError("serving engine is closed")
+        if self.tracer is None and (obs_trace.ACTIVE.get()
+                                    or config.trace_enabled()):
+            # ONE tracer for the whole serving session: per-tick spans land
+            # in it and a single trace export happens at close() — a
+            # per-tick export would rewrite the trace file every tick
+            self.tracer = obs_trace.Tracer(name=self.flow.name,
+                                           measuring=False)
+            self.tracer.meta = {"flow": self.flow.name, "engine": "serving"}
+        i = self.ticks
+        with (obs_trace.trace_scope(self.tracer)
+              if self.tracer is not None else nullcontext()):
+            if not self._started:
+                self._start()
+            # per-tick split numbering restarts at zero: order-sensitive
+            # components gate on next_split == cache.split_index, which is
+            # monotone within one executor run only.  busy is cleared too so
+            # an aborted tick can never deadlock the next one behind a flag
+            # its dying task had no chance to release.
+            for comp in self.flow.vertices.values():
+                comp.next_split = 0
+                comp.busy = False
+            executor = StreamingExecutor(self.flow, self.g_tau, self.options,
+                                         self.runtime_plan, pool=self.pool)
+            t0 = time.perf_counter()
+            with cache_stats_scope() as stats, \
+                    obs_trace.measured(self.tracer), \
+                    obs_trace.span("tick", f"tick-{i}", tick=i):
+                try:
+                    executor.execute()
+                finally:
+                    executor.shutdown()      # no-op: the pool is resident
+            wall = time.perf_counter() - t0
+        self.ticks += 1
+        if self.tracer is not None:
+            m = self.tracer.metrics
+            m.inc("ticks")
+            m.observe("tick_s", wall)
+            if watermark_lag is not None:
+                m.gauge_set("watermark_lag_s", watermark_lag)
+                m.gauge_max("watermark_lag_s_max", watermark_lag)
+        return {"tick": i, "wall_s": wall, "cache_stats": stats.snapshot()}
+
+    # ---------------------------------------------------------------- close
+    def close(self) -> Dict[str, object]:
+        """End the serving session: aggregates leave serving mode (reusable
+        for batch runs), the resident pool joins, the session trace exports
+        once.  Idempotent."""
+        summary: Dict[str, object] = {
+            "engine": self.engine_name, "ticks": self.ticks,
+            "backend": self.backend.name if self.backend else None}
+        if self._closed:
+            return summary
+        self._closed = True
+        for comp in self._serving_aggs:
+            comp.end_serving()
+        self._serving_aggs = []
+        if self.pool is not None:
+            self.pool.shutdown(wait=True)
+        if self.tracer is not None:
+            self.tracer.meta.update(summary)
+            summary["metrics"] = self.tracer.metrics.snapshot()
+            summary["trace_file"] = obs_trace.export_run(
+                self.tracer, meta={"ticks": self.ticks})
+        return summary

@@ -652,9 +652,35 @@ class Splitter(Component):
 # ---------------------------------------------------------------------------
 #  Block components
 # ---------------------------------------------------------------------------
+class _AggServeState:
+    """Cross-tick partial store for a serving-mode ``Aggregate``: per-group
+    MERGEABLE partials (sum/min/max/count — ``avg`` is decomposed into a sum
+    and a count and divided only at emit) kept as host scalars in their
+    backend dtype, so merging a tick is the same dtype-preserving arithmetic
+    the backend's one-shot reduce performs."""
+
+    __slots__ = ("index", "keys", "partials")
+
+    def __init__(self, partial_names: Sequence[str]):
+        self.index: Dict[tuple, int] = {}      # group key tuple -> position
+        self.keys: List[tuple] = []            # group key tuples, insertion order
+        self.partials: Dict[str, list] = {p: [] for p in partial_names}
+
+
+#: internal partial-name separator — ``\x00`` cannot appear in a user column
+_PARTIAL_SEP = "\x00"
+
+
 class Aggregate(BlockComponent):
     """Group-by aggregation — the paper's canonical block component
-    (sum/avg/min/max).  Accumulates all input caches, then reduces."""
+    (sum/avg/min/max).  Accumulates all input caches, then reduces.
+
+    Serving mode (``begin_serving``/``end_serving``): ``finish`` becomes an
+    incremental upsert instead of a one-shot block reduce — the tick's rows
+    are reduced with the normal backend kernel, merged into a persistent
+    per-group partial store, and the emitted cache is the DELTA: every group
+    touched this tick with its current merged value (an upsert row retracts
+    the group's previously emitted value)."""
 
     #: segment fusion may extend a row-sync chain through this component:
     #: the fused segment defers its keep-mask (no per-chunk d2h) and finish()
@@ -672,6 +698,7 @@ class Aggregate(BlockComponent):
                 raise ValueError(f"unknown agg op {op!r}")
         self.aggs = {out: (_col_name(col), op)
                      for out, (col, op) in aggs.items()}
+        self._serving: Optional[_AggServeState] = None
 
     def produced_columns(self) -> frozenset:
         return frozenset(self.group_by) | frozenset(self.aggs)
@@ -684,6 +711,118 @@ class Aggregate(BlockComponent):
         # aggregation REPLACES the schema: group keys + aggregate outputs
         return self.produced_columns()
 
+    def _empty_output(self) -> SharedCache:
+        """The output of no rows: int64 keys and float64 aggregates, the
+        reference backends' empty convention."""
+        cols = {g: np.array([], dtype=np.int64) for g in self.group_by}
+        for out in self.aggs:
+            cols[out] = np.array([], dtype=np.float64)
+        return SharedCache(cols, 0)
+
+    # ------------------------------------------------------------ serving
+    def _partial_plan(self) -> Dict[str, Tuple[str, str]]:
+        """Mergeable-partial spec for the serving tick reduce: partial name
+        -> (input column, op).  ``avg`` is not mergeable and decomposes into
+        a sum partial and a count partial (divided at emit); every other op
+        merges with itself."""
+        plan: Dict[str, Tuple[str, str]] = {}
+        for out, (col, op) in self.aggs.items():
+            if op == "avg":
+                plan[out + _PARTIAL_SEP + "sum"] = (col, "sum")
+                plan[out + _PARTIAL_SEP + "count"] = (col, "count")
+            else:
+                plan[out] = (col, op)
+        return plan
+
+    def begin_serving(self) -> None:
+        """Enter serving mode with a fresh cross-tick partial store."""
+        self._serving = _AggServeState(list(self._partial_plan()))
+
+    def end_serving(self) -> None:
+        """Leave serving mode and drop the partial store — the component is
+        immediately reusable for ordinary batch runs."""
+        self._serving = None
+
+    def serving_snapshot(self):
+        """Copy of the cross-tick partial store, taken before a tick
+        attempt so a retried tick merges its rows exactly once (replaying
+        into already-merged partials would double-count).  ``None`` outside
+        serving mode."""
+        st = self._serving
+        if st is None:
+            return None
+        return (dict(st.index), list(st.keys),
+                {p: list(v) for p, v in st.partials.items()})
+
+    def serving_restore(self, snap) -> None:
+        """Rewind the partial store to a ``serving_snapshot`` (no-op for
+        ``None`` / outside serving mode)."""
+        if self._serving is None or snap is None:
+            return
+        st = self._serving
+        st.index = dict(snap[0])
+        st.keys = list(snap[1])
+        st.partials = {p: list(v) for p, v in snap[2].items()}
+
+    def _serving_finish(self, merged: SharedCache) -> SharedCache:
+        st = self._serving
+        plan = self._partial_plan()
+        n = merged.n
+        if n == 0:
+            # empty tick: nothing merges, the delta is the batch empty output
+            return self._empty_output()
+        bk = self.get_backend()
+        group_cols, part_cols = bk.groupby_reduce(
+            [merged.col(g) for g in self.group_by],
+            {p: (merged.col(col), op) for p, (col, op) in plan.items()},
+            n)
+        # to_host copies (shared_cache.tensor_to_host), so neither the
+        # emitted delta nor the stored partials view a buffer that the
+        # recycle below hands to the next tick
+        group_h = [np.asarray(bk.to_host(c)) for c in group_cols]
+        part_h = {p: np.asarray(bk.to_host(c)) for p, c in part_cols.items()}
+        merged.recycle()            # tick-loop steady state: buffers pool
+        n_groups = len(group_h[0]) if group_h else 1
+        # upsert the tick's reduced groups into the persistent store — the
+        # merge arithmetic stays in each partial's own dtype (numpy scalar
+        # ops of one dtype never promote), so merged partials are the same
+        # values the one-shot reduce computes on exactly-representable data
+        for r in range(n_groups):
+            key = tuple(c[r] for c in group_h)
+            pos = st.index.get(key)
+            if pos is None:
+                st.index[key] = len(st.keys)
+                st.keys.append(key)
+                for p in plan:
+                    st.partials[p].append(part_h[p][r])
+            else:
+                for p, (_, op) in plan.items():
+                    cur, new = st.partials[p][pos], part_h[p][r]
+                    if op == "min":
+                        st.partials[p][pos] = np.minimum(cur, new)
+                    elif op == "max":
+                        st.partials[p][pos] = np.maximum(cur, new)
+                    else:            # sum / count partials merge additively
+                        st.partials[p][pos] = cur + new
+        # the delta: every group touched this tick (already in the backend's
+        # lexicographic group order) with its current MERGED value — an
+        # upsert row supersedes the group's previously emitted value
+        cols = dict(zip(self.group_by, group_h))
+        rows = [st.index[tuple(c[r] for c in group_h)]
+                for r in range(n_groups)]
+        for out, (col, op) in self.aggs.items():
+            if op == "avg":
+                s = st.partials[out + _PARTIAL_SEP + "sum"]
+                cnt = st.partials[out + _PARTIAL_SEP + "count"]
+                # divide in the sum's dtype — the same single-rounding
+                # division the one-shot kernel performs
+                vals = [s[i] / s[i].dtype.type(cnt[i]) for i in rows]
+            else:
+                vals = [st.partials[out][i] for i in rows]
+            cols[out] = np.array(vals, dtype=vals[0].dtype)
+        self.rows_out += n_groups
+        return SharedCache(cols, n_groups)
+
     # ------------------------------------------------------------ batch
     def finish(self, state: List[SharedCache]) -> SharedCache:
         merged = concat_caches(state, ordered=True, recycle_inputs=True)
@@ -695,12 +834,11 @@ class Aggregate(BlockComponent):
             merged.keep_columns(
                 [c for c in merged.names if c != SEGMENT_KEEP_MASK])
             merged.compact(mask)
+        if self._serving is not None:
+            return self._serving_finish(merged)
         n = merged.n
         if n == 0:
-            cols = {g: np.array([], dtype=np.int64) for g in self.group_by}
-            for out in self.aggs:
-                cols[out] = np.array([], dtype=np.float64)
-            return SharedCache(cols, 0)
+            return self._empty_output()
         # groupby_reduce is the backend's block kernel: the torch backend
         # routes sum/avg through the radix-groupby / segment-sum kernels
         group_cols, agg_cols = self.get_backend().groupby_reduce(

@@ -106,13 +106,18 @@ def _source_hash(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def lib_path() -> Path:
+    """Where the library of the current sources and flags lives."""
+    key = _source_hash(sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")))
+    return BUILD_ROOT / key / LIB_NAME
+
+
 def _build() -> Path:
     """Compile (or find) the library for the current sources."""
     global build_log, build_seconds
     cu = sorted(CSRC.glob("*.cu"))
-    key = _source_hash(cu + sorted(CSRC.glob("*.cuh")))
-    out_dir = BUILD_ROOT / key
-    lib = out_dir / LIB_NAME
+    lib = lib_path()
+    out_dir = lib.parent
     if lib.exists():
         return lib
     nvcc = _nvcc()
@@ -151,12 +156,23 @@ def _build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first call."""
+    """The loaded kernel library, built at first call.
+
+    An ``OSError`` from the build (no ``nvcc``) or the load is re-raised as a
+    ``RuntimeError`` naming the library: ``core.faults.classify`` reads an
+    ``OSError`` as transient, and a retry cannot make a missing or broken
+    library load, so it must abort, not be retried and dead-lettered."""
     global _lib
     if _lib is None:
         with _lock:
             if _lib is None:
-                lib = ctypes.CDLL(str(_build()))
+                path = lib_path()
+                try:
+                    lib = ctypes.CDLL(str(_build()))
+                except OSError as e:
+                    raise RuntimeError(
+                        f"the CUDA kernel library {path} could not be built "
+                        f"or loaded: {e!r}") from e
                 for name, argtypes in _SIGNATURES.items():
                     fn = getattr(lib, name)
                     fn.argtypes = list(argtypes)

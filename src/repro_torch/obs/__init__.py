@@ -1,5 +1,6 @@
 """Observability: contextvar-scoped tracing (Chrome-trace/Perfetto export)
-and a per-run metrics registry that reconciles exactly with ``CacheStats``.
+a per-run metrics registry that reconciles exactly with ``CacheStats``, and
+the ``python -m repro_torch.obs.report`` time-attribution CLI.
 
 Enable per run with ``REPRO_TRACE=1`` (file at ``REPRO_TRACE_PATH``, default
 ``repro_trace.json``) or programmatically:

@@ -319,6 +319,125 @@ def test_torch_backend_matches_torch_cpu(dev, qname):
             np.testing.assert_array_equal(got[col], w)
 
 
+def _served_q41_flow(data, sort=False):
+    """SSB Q4.1 through ``repro_torch.flow`` (the declarative example's
+    flow).  Without its sort it ends in the Aggregate and its source holds
+    only the schema, as serving needs; with it, the source holds the whole
+    lineorder table for a batch run."""
+    import repro_torch
+    from repro_torch.etl import DimTable
+    from repro_torch.etl.ssb import mfgr_id, region_id
+    col = repro_torch.col
+    america = region_id("AMERICA")
+    m1, m2 = mfgr_id("MFGR#1"), mfgr_id("MFGR#2")
+    cust = DimTable(data.customer["c_custkey"],
+                    {"c_nation": data.customer["c_nation"]},
+                    row_filter=data.customer["c_region"] == america)
+    supp = DimTable(data.supplier["s_suppkey"],
+                    {"s_nation": data.supplier["s_nation"]},
+                    row_filter=data.supplier["s_region"] == america)
+    part = DimTable(data.part["p_partkey"], {"p_mfgr": data.part["p_mfgr"]},
+                    row_filter=((data.part["p_mfgr"] == m1)
+                                | (data.part["p_mfgr"] == m2)))
+    date = DimTable(data.date["d_datekey"], {"d_year": data.date["d_year"]})
+    b = (repro_torch.flow("q4.1-served")
+         .source(data.lineorder if sort else
+                 {c: a[:0] for c, a in data.lineorder.items()},
+                 name="lineorder")
+         .lookup(cust, "lo_custkey", {"c_nation": "c_nation"})
+         .lookup(supp, "lo_suppkey", {"s_nation": "s_nation"})
+         .lookup(part, "lo_partkey", {"p_mfgr": "p_mfgr"})
+         .lookup(date, "lo_orderdate", {"d_year": "d_year"})
+         .filter((col("c_nation") >= 0) & (col("s_nation") >= 0)
+                 & (col("p_mfgr") >= 0) & (col("d_year") >= 0))
+         .project("d_year", "c_nation", "lo_revenue", "lo_supplycost")
+         .derive("profit", col("lo_revenue") - col("lo_supplycost"))
+         .aggregate(["d_year", "c_nation"], {"profit": ("profit", "sum")}))
+    return (b.sort(["d_year", "c_nation"]) if sort else b).sink()
+
+
+def test_served_q41_matches_torch_cpu(dev):
+    """Q4.1 served in 6 ticks and an empty one, fused, on torch against
+    torch_cpu tick by tick: keys byte-identical, profit within 1e-5; each
+    tick probes 4 x chunks times and reduces with one radix-groupby launch
+    (none on the empty tick); warm ticks compile and upload nothing."""
+    import repro_torch
+    data = ssb.generate(lineorder_rows=200_000, customers=3_000,
+                        suppliers=200, parts=2_000, seed=9)
+    n = len(data.lineorder["lo_orderkey"])
+    batches = [{c: a[idx] for c, a in data.lineorder.items()}
+               for idx in np.array_split(np.arange(n), 6)]
+    batches.insert(3, {c: a[:0] for c, a in data.lineorder.items()})
+    ticks = {}
+    for backend in ("torch", "torch_cpu"):
+        session = repro_torch.Session(backend=backend, metadata=None)
+        out = []
+        with session.serve(_served_q41_flow(data), fuse=True,
+                           num_splits=4) as srv:
+            for b in batches:
+                reset_launches()
+                t = srv.tick(b)
+                torch.cuda.synchronize()
+                out.append((t, launch_counts()))
+            chunk = srv.engine.runtime_plan.chunk_rows
+        ticks[backend] = out
+    for (t, counts), (w, cpu_counts) in zip(ticks["torch"],
+                                            ticks["torch_cpu"]):
+        assert not (t.retries or t.dead_lettered)
+        assert list(t.delta) == list(w.delta)
+        for k, v in w.delta.items():
+            assert t.delta[k].dtype == v.dtype, k
+            if v.dtype.kind == "f":
+                np.testing.assert_allclose(t.delta[k], v, rtol=1e-5)
+            else:
+                assert t.delta[k].tobytes() == v.tobytes(), k
+        chunks = -(-t.rows_in // chunk)
+        assert counts["hash_probe"] == 4 * chunks, t.tick
+        assert counts["radix_groupby"] == (1 if t.rows_in else 0), t.tick
+        assert cpu_counts["hash_probe"] == cpu_counts["radix_groupby"] == 0
+        if t.tick > 0:
+            assert t.cache_stats["segment_compiles"] == 0, t.tick
+            assert t.cache_stats["dim_h2d_transfers"] == 0, t.tick
+        for name in ("h2d_transfers", "d2h_transfers", "segment_compiles",
+                     "dim_h2d_transfers"):
+            assert t.cache_stats[name] == w.cache_stats[name], (t.tick, name)
+    assert ticks["torch"][3][0].rows_out == 0
+    served = repro_torch.replay_deltas([t for t, _ in ticks["torch"]],
+                                       group_by=["d_year", "c_nation"])
+    batch = repro_torch.Session(backend="torch", metadata=None).run(
+        _served_q41_flow(data, sort=True), engine="streaming", fuse=True,
+        num_splits=4).table
+    for k in ("d_year", "c_nation"):
+        assert served[k].tobytes() == batch[k].tobytes(), k
+    np.testing.assert_allclose(served["profit"], batch["profit"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("qname", ["Q4.1", "Q1.1"])
+def test_kettle_on_torch_matches_torch_cpu(dev, qname):
+    """The Kettle baseline through Session.run on the card equals the same
+    run on torch_cpu: keys byte-identical, sums within 1e-5, the same copy
+    and transfer counters."""
+    import repro_torch
+    data = ssb.generate(lineorder_rows=60_000, customers=2_000,
+                        suppliers=300, parts=1_500, seed=7)
+    res = {}
+    for backend in ("torch", "torch_cpu"):
+        res[backend] = repro_torch.Session(backend=backend).run(
+            queries.BUILDERS[qname](data), engine="kettle")
+    got, want = res["torch"], res["torch_cpu"]
+    assert got.run.engine == "kettle"
+    for name in ("copies", "h2d_transfers", "d2h_transfers",
+                 "dispatch_calls"):
+        assert getattr(got.run, name) == getattr(want.run, name), name
+    assert list(got.table) == list(want.table)
+    for col, w in want.table.items():
+        assert got.table[col].dtype == w.dtype, col
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got.table[col], w, rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(got.table[col], w)
+
+
 # ------------------------------------------------------- LM-path kernels
 # Flash attention: the kernel against the plain version on the same card
 # tensors.  fp32 (the FMA kernel) within rtol 2e-4 / atol 2e-5 (both sum the

@@ -190,7 +190,11 @@ def test_metadata_xml_roundtrip():
 def test_port_imports_no_jax():
     code = ("import sys; import repro_torch, repro_torch.core, "
             "repro_torch.etl, repro_torch.core.backend.torch_backend, "
-            "repro_torch.kernels; "
+            "repro_torch.kernels, repro_torch.session, "
+            "repro_torch.etl.kettle, repro_torch.core.simulate, "
+            "repro_torch.obs.report, repro_torch.configs.ssb_etl; "
+            "from repro_torch import (Session, flow, FlowBuilder, "
+            "ServeSession, TickResult, replay_deltas, ServingEngine); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
