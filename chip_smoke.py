@@ -25,7 +25,9 @@ Phases (any failure raises and the script exits non-zero):
    probe runs against all four Q4.1 dimensions on its packed table, with
    its device time taken after every other event time (a profiler session
    slows later launches on the host).  fp32 flash attention runs
-   at every head dim.
+   at every head dim.  The grouped sums also run at the sharded runs'
+   shapes: a shard's Q4.1, Q1.1 and supplier partials and the mesh
+   combiner's sums.
 3. ETL main path: SSB scale factor 1 (seed 42) through
    ``repro_torch.Session.run`` on backend ``torch`` with segment fusion:
    Q4.1 on the optimized and streaming engines, Q4.1s (Q4.1 cut into two
@@ -36,6 +38,16 @@ Phases (any failure raises and the script exits non-zero):
    just before the path's first run and read after its last.  Then SF1
    Q4.1 once on each copy-everywhere baseline (``ordinary``, ``kettle``)
    against the oracle, and the four engines' walls and rows/s.
+   Then sharded runs (streaming, fused, 8 splits): SF1 Q4.1 over 4 shards
+   on ``shard_impl="auto"`` (which must resolve to the mesh route) twice,
+   bit-identical, and on ``inline``; Q1.1 over 4 shards on the mesh route;
+   a supplier-keyed Aggregate of lineorder (hash partitioning, 2,000
+   groups); Q4.1 over 2 shards on the process route, twice (the first
+   spawns the workers).  Each must match the serial run (keys, order,
+   counts, dtypes; sums within FLOAT_RTOL) and the oracle, with no
+   degradation and every row on one shard; each prints its wall, rows/s,
+   shard rows, transfers, shuffle bytes and kernel launches, counted from
+   0 just before it (the process route's include its workers').
    Then served Q4.1: the declarative Q4.1 flow through ``Session.serve``,
    SF1's lineorder in 12 ticks and an empty one; the replayed deltas must
    equal a batch run of the flow, each tick must go through the probe (4 x
@@ -385,17 +397,21 @@ def _grouped_case(label, ids, vals, n_groups, kernel, plain, library,
     out_cols = c + (1 if with_counts else 0)
     nbytes = n * 4 + n * c * 4 + n_groups * out_cols * 4
     b, by = bound_ms(nbytes, n * out_cols)
+    from repro_torch.kernels._grouped_sum import is_direct
+    direct = is_direct(n_groups, c, with_counts)
     log(f"  {label}: rows={n} C={c} groups={n_groups} "
+        f"route={'direct' if direct else 'partitioned'} "
         f"{'exact' if exact else 'order-bound'} max_abs_err={err:.6g} "
         f"max_rel_err={rel:.3g} err_vs_f64={err64:.3g} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} slower_than_plain={ms > plain_ms} "
         f"library_ms={library_ms:.4f} bound_ms={b:.4f} ({by}) "
         f"bit_stable=True kernels_a_call="
         f"{n_kernels if n_kernels is not None else 'not measured'} "
         f"device_ms_a_call="
         f"{f'{device_ms:.4f}' if device_ms is not None else 'not measured'}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b,
-                bound_by=by, max_abs_err=err, kernels_a_call=n_kernels)
+                bound_by=by, max_abs_err=err, kernels_a_call=n_kernels,
+                direct=direct)
 
 
 def call_kernels(fn, attempts: int = 3):
@@ -422,7 +438,14 @@ def call_kernels(fn, attempts: int = 3):
 
 
 def check_main_launches(label: str, m: dict) -> None:
-    """A grouped sum at its main-path shape runs at most two kernels."""
+    """A grouped sum on the direct route runs at most two kernels a call.
+    The partitioned route (an id space too large for a warp's shared
+    partial, as the supplier shard's 2,000 cells) also runs its counting
+    sort's passes: it is exempt, and its count is printed."""
+    if not m["direct"]:
+        log(f"  {label}: partitioned route, kernels_a_call="
+            f"{m['kernels_a_call']} (exempt from the two-kernel check)")
+        return
     if m["kernels_a_call"] is not None and m["kernels_a_call"] > 2:
         raise AssertionError(f"{label}: one call launched "
                              f"{m['kernels_a_call']} device kernels, more "
@@ -464,6 +487,29 @@ def phase_radix_groupby(rng) -> dict:
             radix_groupby_ref, _index_add_yardstick(ids, v, cells, True),
             with_counts=True, exact=exact)
         check_main_launches(f"radix_groupby[{label}]", results[label])
+    # the sharded runs' shapes: one of 4 shards' Q4.1 partial (a quarter of
+    # the surviving rows), and one of 4 shards of the supplier Aggregate
+    # (1.5M rows; hash partitioning leaves about 500 of the 2,000 supplier
+    # keys on a shard, spread over the whole key range, so 2,000 cells)
+    n = 24_000
+    ids = torch.from_numpy((rng.integers(0, 7, n) * 21
+                            + rng.choice([0, 5, 10, 15, 20], n)
+                            ).astype(np.int32)).to(dev)
+    v = torch.from_numpy(rng.integers(30_000, 1_060_000, (n, 1))
+                         .astype(np.float32)).to(dev)
+    check_main_launches("radix_groupby[q41_shard]", _grouped_case(
+        "radix_groupby[q41_shard]", ids, v, 147, kernel, radix_groupby_ref,
+        _index_add_yardstick(ids, v, 147, True), with_counts=True,
+        exact=False))
+    n, cells = 1_500_000, 2_000
+    keys = rng.choice(cells, 500, replace=False)
+    ids = torch.from_numpy(rng.choice(keys, n).astype(np.int32)).to(dev)
+    v = torch.from_numpy(rng.integers(90_000, 10_000_000, (n, 1))
+                         .astype(np.float32)).to(dev)
+    check_main_launches("radix_groupby[supplier_shard]", _grouped_case(
+        "radix_groupby[supplier_shard]", ids, v, cells, kernel,
+        radix_groupby_ref, _index_add_yardstick(ids, v, cells, True),
+        with_counts=True, exact=False))
     # many partitions: 2^20 cells, 4M rows, ~2% padding rows
     n, cells = 4 << 20, 1 << 20
     big = rng.integers(0, cells, n).astype(np.int32)
@@ -499,6 +545,26 @@ def phase_segment_sum(rng) -> dict:
             segment_sum_ref, _index_add_yardstick(ids, v, 1, False),
             with_counts=False, exact=exact)
         check_main_launches(f"segment_sum[{label}]", results[label])
+    # the sharded runs' shapes: one of 4 shards' Q1.1 partial, and the mesh
+    # combiner's float sums over the shards' partial rows in shard order:
+    # Q4.1's 35 groups from each of 4 shards, the supplier Aggregate's
+    # 2,000 groups each from one shard
+    n = 28_000
+    v = torch.from_numpy(rev[:n].copy()).to(dev)
+    check_main_launches("segment_sum[q11_shard]", _grouped_case(
+        "segment_sum[q11_shard]", ids[:n], v, 1, kernel, segment_sum_ref,
+        _index_add_yardstick(ids[:n], v, 1, False), with_counts=False,
+        exact=False))
+    for label, comb in (("q41_combiner", np.tile(np.arange(35), 4)),
+                        ("supplier_combiner", rng.permutation(2_000))):
+        g = int(comb.max()) + 1
+        cids = torch.from_numpy(comb.astype(np.int32)).to(dev)
+        v = torch.from_numpy(rng.integers(30_000, 1 << 30, (len(comb), 1))
+                             .astype(np.float32)).to(dev)
+        check_main_launches(f"segment_sum[{label}]", _grouped_case(
+            f"segment_sum[{label}]", cids, v, g, kernel, segment_sum_ref,
+            _index_add_yardstick(cids, v, g, False), with_counts=False,
+            exact=False))
     n, groups = 1 << 20, 4096
     ids = torch.from_numpy(rng.integers(0, groups, n).astype(np.int32)).to(dev)
     v = torch.from_numpy(rng.integers(0, 16, (n, 1)).astype(np.float32)).to(dev)
@@ -772,10 +838,11 @@ def check_oracle(got: dict, expect: dict, rtol: float, label: str) -> None:
                                  f"oracle")
 
 
-def run_main(data, expect: dict) -> dict:
+def run_main(data, expect: dict):
     """Every run of the main path, through ``Session.run``, with the launch
     counters set to 0 once before the first and read after the last;
-    returns the total launches per kernel and the Q4.1 walls by engine."""
+    returns the total launches per kernel, the Q4.1 walls by engine and
+    each (query, engine)'s table."""
     import repro_torch
     from repro_torch.core import resolve_backend
     from repro_torch.etl.queries import build_q1, build_q4, build_q4_staged
@@ -784,6 +851,7 @@ def run_main(data, expect: dict) -> dict:
     session = repro_torch.Session(backend="torch")
     rows = len(data.lineorder["lo_orderkey"])
     walls: dict = {}
+    tables: dict = {}
     torch.cuda.synchronize()
     reset_launches()
     # Q4.1s: Q4.1 with a StageBoundary after its lookups, two trees that
@@ -835,8 +903,9 @@ def run_main(data, expect: dict) -> dict:
                 raise AssertionError(f"{qname}/{engine}: second run "
                                      f"differs in {k}")
         log(f"  {qname}/{engine}: second run byte-identical")
+        tables[qname, engine] = first
     torch.cuda.synchronize()
-    return launch_counts(), walls
+    return launch_counts(), walls, tables
 
 
 def run_baselines(data, expect: dict, walls: dict) -> None:
@@ -876,6 +945,204 @@ def run_baselines(data, expect: dict, walls: dict) -> None:
     for engine in ("ordinary", "kettle", "optimized", "streaming"):
         w = min(walls[engine])
         log(f"    {engine:10s} wall={w:.4f}s rows/s={rows / w:.6g}")
+
+
+# ---------------------------------------------------------------------------
+#  Phase 3a: sharded runs
+# ---------------------------------------------------------------------------
+SHARDS = 4
+PROCESS_SHARDS = 2
+#: the three ETL kernels, whose launches every sharded run prints
+ETL_KERNELS = ("hash_probe", "radix_groupby", "segment_sum")
+
+
+def suppkey_flow(data):
+    """lineorder -> Aggregate(lo_suppkey: revenue sum, row count) -> sink.
+    Keyed on a source column, so the shard planner partitions by hash (each
+    supplier's rows on one shard); 2,000 groups at SF1."""
+    from repro_torch.core.graph import Dataflow
+    from repro_torch.etl.components import Aggregate, ArraySource, CollectSink
+    flow = Dataflow("suppkey-revenue")
+    sink = CollectSink("sink")
+    flow.chain(ArraySource("lineorder", data.lineorder),
+               Aggregate("by_supplier", ["lo_suppkey"],
+                         {"revenue": ("lo_revenue", "sum"),
+                          "orders": ("lo_revenue", "count")}),
+               sink)
+    return flow, sink
+
+
+def suppkey_oracle(data) -> dict:
+    key = data.lineorder["lo_suppkey"]
+    uniq, inv = np.unique(key, return_inverse=True)
+    return {"lo_suppkey": uniq,
+            "revenue": np.bincount(inv, weights=data.lineorder["lo_revenue"]
+                                   .astype(np.float64)),
+            "orders": np.bincount(inv).astype(np.int64)}
+
+
+def same_as_serial(got: dict, want: dict, label: str) -> float:
+    """Keys, group order, counts and dtypes identical to the serial run;
+    float sums within FLOAT_RTOL of it.  Returns the largest relative gap
+    of a float column."""
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: columns {list(got)} vs serial "
+                             f"{list(want)}")
+    gap = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: {k} is {g.dtype}{g.shape}, "
+                                 f"serial {w.dtype}{w.shape}")
+        if w.dtype.kind == "f":
+            if not np.allclose(g, w, rtol=FLOAT_RTOL, atol=0.0):
+                raise AssertionError(f"{label}: {k} beyond rtol "
+                                     f"{FLOAT_RTOL} of the serial run")
+            nz = w != 0
+            if nz.any():
+                gap = max(gap, float(np.max(np.abs(g[nz] - w[nz])
+                                            / np.abs(w[nz]))))
+        elif g.tobytes() != w.tobytes():
+            raise AssertionError(f"{label}: {k} differs from the serial run")
+    return gap
+
+
+def sharded_run(session, label: str, q, expect: dict, serial: dict,
+                rows: int, need: tuple, **opts):
+    """One sharded ``Session.run`` (streaming, fused, 8 splits) with the
+    launch counters set to 0 just before it and read just after: checked
+    against the serial run and the oracle, with no degradation, every
+    source row on one shard and each kernel of ``need`` launched.  Prints
+    the run's line; returns its table, run and launches (a process-route
+    run's include its workers')."""
+    from repro_torch.core import resolve_backend
+    from repro_torch.kernels import launch_counts, reset_launches
+    rtol = resolve_backend("torch").oracle_rtol
+    torch.cuda.synchronize()
+    reset_launches()
+    res = session.run(q, engine="streaming", fuse=True, num_splits=8, **opts)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    run, got = res.run, res.table
+    if run.degradations != 0:
+        raise AssertionError(f"{label}: degradations "
+                             f"{run.degradation_events}")
+    if run.shards != opts["shards"] or run.shard is None:
+        raise AssertionError(f"{label}: ran {run.shards} shards, asked for "
+                             f"{opts['shards']}")
+    if sum(run.shard_rows) != rows:
+        raise AssertionError(f"{label}: shard rows {run.shard_rows} do not "
+                             f"sum to {rows}")
+    gap = same_as_serial(got, serial, label)
+    check_oracle(got, expect, rtol, label)
+    for k, n in run.shard.worker_launches.items():
+        counts[k] += n
+    for k in need:
+        if counts[k] < 1:
+            raise AssertionError(f"{label}: {k} never launched")
+    sr = run.shard
+    log(f"  {label}: impl={sr.impl} mode={sr.mode} wall={run.wall_time:.4f}s "
+        f"rows/s={rows / run.wall_time:.6g} shard_rows={run.shard_rows} "
+        f"h2d={run.h2d_transfers} d2h={run.d2h_transfers} "
+        f"dispatch={run.dispatch_calls} shuffle_bytes={sr.shuffle_bytes} "
+        f"scatter_s={sr.scatter_seconds:.4f} "
+        f"combiner={sr.combiner_copies or None} launches="
+        f"{ {k: counts[k] for k in ETL_KERNELS} } "
+        f"max_rel_gap_vs_serial={gap:.3g} oracle_rtol={rtol} ok")
+    return got, run, counts
+
+
+def phase_sharded(data, expect: dict, serial: dict) -> dict:
+    """SF1 over shards through ``Session.run`` on ``torch``: Q4.1 on the
+    mesh route (``auto``) twice, bit-identical; Q4.1 inline; Q1.1 on the
+    mesh route; the hash-mode supplier flow; Q4.1 on the process route at
+    2 shards, twice (the first spawns the workers).  Returns the launches
+    of all these runs, each counted from 0 just before it."""
+    import repro_torch
+    from repro_torch.core.shard import proc
+    from repro_torch.etl.queries import build_q1, build_q4
+    session = repro_torch.Session(backend="torch", metadata=None)
+    rows = len(data.lineorder["lo_orderkey"])
+    total = {k: 0 for k in ETL_KERNELS}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    q41 = serial["Q4.1", "streaming"]
+    tables = []
+    for attempt in (1, 2):
+        got, run, counts = sharded_run(
+            session, f"Q4.1 shards={SHARDS} auto#{attempt}", build_q4(data),
+            expect["Q4.1"], q41, rows, ETL_KERNELS, shards=SHARDS,
+            shard_impl="auto")
+        if run.shard.impl != "mesh" or run.shard.mode != "range":
+            raise AssertionError(f"Q4.1: auto took {run.shard.impl}/"
+                                 f"{run.shard.mode}, expected mesh/range")
+        chunks = sum(-(-n // run.runtime_plan.chunk_rows)
+                     for n in run.shard_rows)
+        if counts["hash_probe"] != 4 * chunks:
+            raise AssertionError(f"Q4.1 sharded: hash_probe launched "
+                                 f"{counts['hash_probe']} times, expected 4 "
+                                 f"lookups x {chunks} chunks")
+        if counts["radix_groupby"] != SHARDS:
+            raise AssertionError(f"Q4.1 sharded: radix_groupby launched "
+                                 f"{counts['radix_groupby']} times, expected "
+                                 f"one a shard")
+        add(counts)
+        tables.append(got)
+    for k in tables[0]:
+        if tables[0][k].tobytes() != tables[1][k].tobytes():
+            raise AssertionError(f"Q4.1 mesh: second run differs in {k}")
+    log(f"  Q4.1 shards={SHARDS} mesh: second run bit-identical")
+    _, run, counts = sharded_run(
+        session, f"Q4.1 shards={SHARDS} inline", build_q4(data),
+        expect["Q4.1"], q41, rows, ("hash_probe", "radix_groupby"),
+        shards=SHARDS, shard_impl="inline")
+    add(counts)
+    _, run, counts = sharded_run(
+        session, f"Q1.1 shards={SHARDS} mesh", build_q1(data),
+        expect["Q1.1"], serial["Q1.1", "optimized"], rows,
+        ("hash_probe", "segment_sum"), shards=SHARDS, shard_impl="mesh")
+    add(counts)
+    supp = session.run(suppkey_flow(data), engine="streaming", fuse=True,
+                       num_splits=8)
+    supp_serial = supp.table
+    log(f"  lo_suppkey serial: wall={supp.run.wall_time:.4f}s "
+        f"rows/s={rows / supp.run.wall_time:.6g}")
+    _, run, counts = sharded_run(
+        session, f"lo_suppkey shards={SHARDS} mesh", suppkey_flow(data),
+        suppkey_oracle(data), supp_serial, rows,
+        ("radix_groupby", "segment_sum"), shards=SHARDS, shard_impl="auto")
+    if run.shard.mode != "hash" or run.shard.impl != "mesh":
+        raise AssertionError(f"lo_suppkey: {run.shard.impl}/"
+                             f"{run.shard.mode}, expected mesh/hash")
+    add(counts)
+    walls = []
+    try:
+        for attempt in (1, 2):
+            _, run, counts = sharded_run(
+                session, f"Q4.1 shards={PROCESS_SHARDS} process#{attempt}",
+                build_q4(data), expect["Q4.1"], q41, rows,
+                ("hash_probe", "radix_groupby"), shards=PROCESS_SHARDS,
+                shard_impl="process")
+            if run.shard.impl != "process":
+                raise AssertionError(f"Q4.1 process: ran {run.shard.impl}")
+            add(counts)
+            walls.append(run.wall_time)
+            secs = [{k: round(v, 4) for k, v in w.items()}
+                    for w in run.shard.worker_seconds]
+            log(f"    process route: payloads {run.shard.payload_bytes} "
+                f"bytes pickled in {run.shard.payload_seconds:.4f}s; "
+                f"fan-out {run.shard.fanout_seconds:.4f}s; workers' "
+                f"seconds {secs}; worker launches "
+                f"{run.shard.worker_launches}")
+    finally:
+        proc.close_pool()
+    log(f"  Q4.1 process route: first run (spawns {PROCESS_SHARDS} workers) "
+        f"{walls[0]:.4f}s, second {walls[1]:.4f}s: spawn and worker start "
+        f"about {walls[0] - walls[1]:.4f}s")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1353,9 +1620,12 @@ def main() -> int:
     expect = {"Q4.1": build_q4(data).oracle(data),
               "Q1.1": build_q1(data).oracle(data)}
     log(f"  oracles in {time.perf_counter() - t0:.1f}s")
-    launches, walls = run_main(data, expect)
+    launches, walls, serial = run_main(data, expect)
     log("Q4.1 on the copy-everywhere baselines (SSB SF1, backend torch):")
     run_baselines(data, expect, walls)
+    log(f"sharded runs (SSB SF1, backend torch, fused, streaming, 8 splits):")
+    for k, v in phase_sharded(data, expect, serial).items():
+        launches[k] += v
     log(f"served Q4.1 (SSB SF1 in {SERVE_TICKS} ticks and an empty one, "
         f"backend torch, fused, 8 splits):")
     served = phase_served_q41(data, expect, args.profile)

@@ -32,6 +32,8 @@ from .planner import (PipelinePlan, RuntimePlan, backend_chunk_rows,
                       estimate_edge_bytes, infer_schema, plan_runtime,
                       theorem1_m_star)
 from .scheduler import plan_schedule, run_tree_graph
+from .shard import (ShardContext, ShardPlan, ShardResult, ShardRunner,
+                    choose_shards, plan_shards)
 from .shared_cache import (GLOBAL_ARENA, GLOBAL_CACHE_STATS, CacheArena,
                            CacheStats, SharedCache, cache_stats_scope,
                            concat_caches)
@@ -63,6 +65,7 @@ __all__ = [
     "discover_segments", "estimate_edge_bytes", "infer_schema",
     "plan_runtime", "theorem1_m_star",
     "plan_schedule", "run_tree_graph",
+    "choose_shards", "plan_shards",
     "GLOBAL_ARENA", "GLOBAL_CACHE_STATS", "CacheArena", "CacheStats",
     "SharedCache", "cache_stats_scope", "concat_caches",
     "SimResult", "cpu_usage_curve", "multithreading_curve", "simulate_tree",

@@ -75,6 +75,13 @@ class Component:
     #: by run-level replay) — must keep False; their transient failures
     #: escalate to run-level retry instead.
     replay_safe: bool = True
+    #: sharded-execution role, set by the shard runtime for the duration of a
+    #: sharded run on first-layer block/semi-block cut components only:
+    #: ``"partial"`` — finish() is intercepted to stash a per-shard partial
+    #: and emit an empty schema-shaped cache; ``"merge"`` — finish() combines
+    #: the stashed partials into the exact serial result.  ``None`` (the
+    #: default) leaves finish() untouched.
+    shard_role: Optional[str] = None
 
     def __init__(self, name: str):
         self.name = name
@@ -208,7 +215,7 @@ class Component:
     # The process shard route ships whole flows to spawned workers.  Locks
     # and backends don't pickle; both are reconstructed on load (the worker
     # re-resolves the backend from its own environment).
-    _UNPICKLABLE = ("cond", "backend")
+    _UNPICKLABLE = ("cond", "backend", "_shard_ctx")
 
     def __getstate__(self):
         state = dict(self.__dict__)

@@ -31,7 +31,8 @@ Every setting also has a first-class API equivalent (see the README table):
     REPRO_FAULTS         core.faults.fault_scope(FaultPlan.parse(...))
     REPRO_RETRY_MAX      core.faults.retry_call(max_retries=...)
     REPRO_RETRY_BACKOFF  core.faults.retry_call(backoff=...)
-    REPRO_SHARDS         OptimizeOptions(shards=...) (only 1 in this port)
+    REPRO_SHARDS         OptimizeOptions(shards=...) / Session.run(shards=...)
+    REPRO_SHARD_IMPL     OptimizeOptions(shard_impl=...)
 
 Kernel impl selectors (join / groupby / segsum) take ``auto`` (the CUDA
 kernel for a CUDA tensor, the plain torch version for a CPU tensor),
@@ -97,10 +98,17 @@ ENV_RETRY_MAX = "REPRO_RETRY_MAX"
 #: initial retry backoff in seconds (doubles per attempt, capped at
 #: ``core.faults.RETRY_BACKOFF_CAP_S``)
 ENV_RETRY_BACKOFF = "REPRO_RETRY_BACKOFF"
-#: shard count when ``OptimizeOptions.shards`` is unset: 1 (default) runs
-#: the serial path; any other value raises NotImplementedError until the
-#: sharding slice of the port lands
+#: shard count for the OptimizedEngine/StreamingEngine sharded-execution
+#: route when ``OptimizeOptions.shards`` is unset: 1 (default) runs the
+#: serial path, N>1 hash/range-partitions sources across N shards, 0 lets
+#: the ShardPlanner choose from the row count and split count
 ENV_SHARDS = "REPRO_SHARDS"
+#: sharded-execution route: "auto" (mesh on the torch backends, else
+#: inline), "process" (spawned worker processes running pickled per-shard
+#: flows), "mesh" (inline passes whose Aggregate partials merge on the
+#: backend's device, ``core/shard/mesh.py``), or "inline" (sequential
+#: in-process shard passes — the always-available correctness route)
+ENV_SHARD_IMPL = "REPRO_SHARD_IMPL"
 
 DEFAULT_TRACE_PATH = "repro_trace.json"
 DEFAULT_TRACE_MAX_EVENTS = 200_000
@@ -115,6 +123,7 @@ FLOW_STYLES = ("dsl", "lambda")
 JOIN_IMPLS = ("auto", "cuda", "reference", "searchsorted")
 GROUPBY_IMPLS = ("auto", "cuda", "reference", "sort")
 SEGSUM_IMPLS = ("auto", "cuda", "reference")
+SHARD_IMPLS = ("auto", "process", "mesh", "inline")
 
 
 def _raw(name: str) -> Optional[str]:
@@ -273,6 +282,17 @@ def shards() -> int:
     return n
 
 
+def shard_impl() -> str:
+    """Sharded-execution route when ``OptimizeOptions.shard_impl`` is unset
+    (``REPRO_SHARD_IMPL``, default "auto")."""
+    v = _raw(ENV_SHARD_IMPL) or "auto"
+    if v not in SHARD_IMPLS:
+        raise ValueError(
+            f"{ENV_SHARD_IMPL}={v!r} is not a valid shard impl; "
+            f"expected one of {SHARD_IMPLS}")
+    return v
+
+
 def snapshot() -> Dict[str, object]:
     """Every setting's effective value — recorded in benchmark JSON so a
     run's configuration is reconstructable."""
@@ -295,4 +315,5 @@ def snapshot() -> Dict[str, object]:
         "retry_max": retry_max(),
         "retry_backoff": retry_backoff(),
         "shards": shards(),
+        "shard_impl": shard_impl(),
     }

@@ -27,7 +27,7 @@ from __future__ import annotations
 import time
 from contextlib import nullcontext
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
 from ..obs import trace as obs_trace
 from . import config, faults
@@ -40,6 +40,9 @@ from .partitioner import ExecutionTreeGraph, partition
 from .planner import PipelinePlan, RuntimePlan, build_plan, plan_runtime
 from .shared_cache import (GLOBAL_ARENA, SharedCache, cache_stats_scope,
                            record_copy)
+
+if TYPE_CHECKING:
+    from .shard import ShardResult
 
 #: environment switch for segment fusion when OptimizeOptions.fuse_segments
 #: is left unset (the CI fusion leg runs the whole suite under REPRO_FUSION=1;
@@ -82,6 +85,10 @@ class EngineRun:
     #: (1 = serial) and the source rows each shard processed
     shards: int = 1
     shard_rows: List[int] = field(default_factory=list)
+    #: a sharded run's ``core.shard.ShardResult`` (the route it took, its
+    #: partitioning mode, shuffle bytes, process-route costs); None when
+    #: the run was serial
+    shard: Optional["ShardResult"] = None
     # adaptive path (optimize_level=2): graph rewrites applied before the run
     rewrites: List[Dict[str, str]] = field(default_factory=list)
     # rewrites the optimizer REFUSED for safety (with reasons) — refusals
@@ -312,10 +319,15 @@ class OptimizeOptions:
     #: compiled-kernel activities (optimizer.fuse_segments_flow).  None =>
     #: follow the REPRO_FUSION env var; applies at every optimize level.
     fuse_segments: Optional[bool] = None
-    #: sharded execution: None => follow REPRO_SHARDS (default 1 = serial).
-    #: Only 1 runs in this port; sharding is a later slice, and any other
-    #: count raises NotImplementedError rather than running serially.
+    #: sharded execution (core/shard): partition the source rows over N
+    #: shards, run the full per-shard flow, merge partials once at the
+    #: coordinator — sinks keep the serial keys, row order and dtypes.
+    #: None => follow REPRO_SHARDS (default 1 = serial); 0 = auto-pick from
+    #: the row and split counts (shard.choose_shards).
     shards: Optional[int] = None
+    #: shard worker route: "auto" | "process" | "mesh" | "inline".  None =>
+    #: follow REPRO_SHARD_IMPL (default "auto": mesh on torch / torch_cpu).
+    shard_impl: Optional[str] = None
 
     def fusion_enabled(self) -> bool:
         if self.fuse_segments is not None:
@@ -411,11 +423,6 @@ class OptimizedEngine:
     # ---------------------------------------------------------------- run
     def run(self) -> EngineRun:
         opts = self.options
-        n_shards = opts.shards if opts.shards is not None else config.shards()
-        if n_shards != 1:
-            raise NotImplementedError(
-                f"shards={n_shards}: sharded execution is not ported to "
-                f"repro_torch yet; run with shards=1")
         self.flow.validate()
         self.flow.reset_stats()
         bk = resolve_backend(opts.backend)
@@ -454,33 +461,56 @@ class OptimizedEngine:
             # fresh executor after the flow's transient state is reset.
             # The stats scope / tracer / span stay OUTSIDE the loop so
             # retry counters and failed-attempt work attribute to this run.
+            sres = None
             attempt, delay = 0, config.retry_backoff()
             with cache_stats_scope() as stats, obs_trace.measured(tracer), \
                     obs_trace.span("phase", "execute"), \
                     faults.fault_recorder() as frec:
-                while True:
-                    executor = StreamingExecutor(self.flow, self.g_tau,
-                                                 opts, self.runtime_plan)
-                    try:
-                        executor.execute()
-                        break
-                    except BaseException as e:
-                        if (faults.classify(e) != "transient"
-                                or attempt >= config.retry_max()):
-                            raise
-                        faults.record_retry(f"run.{self.flow.name}",
-                                            attempt, delay)
-                        self._reset_for_retry()
-                        if delay > 0.0:
-                            time.sleep(delay)
-                        delay = min(delay * 2.0 if delay else 0.0,
-                                    faults.RETRY_BACKOFF_CAP_S)
-                        attempt += 1
-                    finally:
-                        pool_stats = executor.pool.stats()
-                        executor.shutdown()
-                streamed_edges = list(executor.streamed_edges)
-                channel_hwm = executor.channel_hwm()
+                n_shards = (opts.shards if opts.shards is not None
+                            else config.shards())
+                if n_shards != 1:
+                    # planned inside the run's scopes so a shard_plan
+                    # degradation (unshardable flow) attributes to this run
+                    from .shard import plan_shards
+                    shard_plan = plan_shards(
+                        self.flow, self.g_tau, n_shards,
+                        opts.shard_impl or config.shard_impl(), opts, bk)
+                else:
+                    shard_plan = None
+                if shard_plan is not None:
+                    # sharded path: per-shard transient replay (inside the
+                    # runner) supersedes run-level retry
+                    from .shard import ShardRunner
+                    sres = ShardRunner(self.flow, self.g_tau, opts,
+                                       self.runtime_plan, shard_plan,
+                                       tracer=tracer).execute()
+                    pool_stats = sres.pool_stats
+                    streamed_edges = sres.streamed_edges
+                    channel_hwm = sres.channel_hwm
+                else:
+                    while True:
+                        executor = StreamingExecutor(self.flow, self.g_tau,
+                                                     opts, self.runtime_plan)
+                        try:
+                            executor.execute()
+                            break
+                        except BaseException as e:
+                            if (faults.classify(e) != "transient"
+                                    or attempt >= config.retry_max()):
+                                raise
+                            faults.record_retry(f"run.{self.flow.name}",
+                                                attempt, delay)
+                            self._reset_for_retry()
+                            if delay > 0.0:
+                                time.sleep(delay)
+                            delay = min(delay * 2.0 if delay else 0.0,
+                                        faults.RETRY_BACKOFF_CAP_S)
+                            attempt += 1
+                        finally:
+                            pool_stats = executor.pool.stats()
+                            executor.shutdown()
+                    streamed_edges = list(executor.streamed_edges)
+                    channel_hwm = executor.channel_hwm()
             wall = time.perf_counter() - t_start
             run = EngineRun(
                 wall_time=wall, copies=0, bytes_copied=0,
@@ -496,7 +526,19 @@ class OptimizedEngine:
                 degradation_events=[d.spec() for d in frec.degradations],
                 rewrites=[r.spec() for r in rewrites],
                 refusals=[r.spec() for r in refusals])
-            _run_counters(run, stats.snapshot())
+            snap = stats.snapshot()
+            if sres is not None:
+                # process-route worker counters were already absorbed into
+                # this scope (shared_cache.absorb_external), so snap equals
+                # the exact sum over all shards on every route
+                run.shards = sres.shards
+                run.shard_rows = list(sres.shard_rows)
+                # dispatch counts live on Component.calls; process-route
+                # shard passes ran on worker flow copies, so fold their
+                # shipped totals in — inline passes already hit self.flow
+                run.dispatch_calls += sres.worker_dispatch
+                run.shard = sres
+            _run_counters(run, snap)
             _finish_obs(tracer, run, pool_stats=pool_stats,
                         channel_hwm=channel_hwm)
             if self.metadata is not None:

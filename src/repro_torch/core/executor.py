@@ -643,13 +643,21 @@ class StreamingExecutor:
             state = root.new_state()
             extras: List[Delivery] = []
             out: Optional[SharedCache] = None
+            # sharded runs intercept finish() on cut roots: tags records
+            # each accumulated cache's (src_tree, split_index) provenance so
+            # the merge pass can reassemble the serial accumulation order
+            tags: List[Tuple[int, int]] = []
             try:
                 for (src, idx, dst, cache) in entries:
                     if dst == tree.root:
+                        tags.append((src, idx))
                         root.accumulate(state, cache)
                     else:
                         extras.append((src, idx, dst, cache))
-                out = root.finish(state)
+                if root.shard_role is not None:
+                    out = root._shard_ctx.intercept_finish(root, state, tags)
+                else:
+                    out = root.finish(state)
                 state = None           # finish consumed (and recycled) it
                 for (src, idx, dst, cache) in extras:
                     cache.split_index = idx

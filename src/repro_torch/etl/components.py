@@ -852,6 +852,89 @@ class Aggregate(BlockComponent):
         self.rows_out += n_groups
         return SharedCache(cols, n_groups)
 
+    # ------------------------------------------------------------ sharded
+    # The shard runtime's partial→shuffle→merge decomposition reuses the
+    # serving partial plan: each shard reduces its rows to per-group
+    # MERGEABLE partials (avg → sum+count), the coordinator second-stage
+    # reduces the stashed partial tables (value partials with their own op,
+    # count partials by summing) in each partial's stage-1 dtype, and avg
+    # divides once at emit — the identical single-rounding arithmetic the
+    # serial one-shot reduce performs on exactly-representable data.
+
+    def shard_partial(self, state: List[SharedCache]) -> Optional[dict]:
+        """Reduce one shard pass's accumulated input to a host partial
+        table ``{group col / partial name: np.ndarray}``; ``None`` when the
+        shard delivered no rows (nothing to merge)."""
+        merged = concat_caches(state, ordered=True, recycle_inputs=True)
+        if SEGMENT_KEEP_MASK in merged.names:
+            # same deferred-keep-mask compaction as finish(): one d2h sync
+            mask = merged.col(SEGMENT_KEEP_MASK)
+            merged.keep_columns(
+                [c for c in merged.names if c != SEGMENT_KEEP_MASK])
+            merged.compact(mask)
+        n = merged.n
+        if n == 0:
+            merged.recycle()
+            return None
+        plan = self._partial_plan()
+        bk = self.get_backend()
+        group_cols, part_cols = bk.groupby_reduce(
+            [merged.col(g) for g in self.group_by],
+            {p: (merged.col(col), op) for p, (col, op) in plan.items()},
+            n)
+        table = {g: np.asarray(bk.to_host(c))
+                 for g, c in zip(self.group_by, group_cols)}
+        for p, c in part_cols.items():
+            table[p] = np.asarray(bk.to_host(c))
+        merged.recycle()
+        return table
+
+    def shard_empty(self) -> SharedCache:
+        """Schema-shaped empty output a shard pass emits downstream — the
+        batch empty output."""
+        return self._empty_output()
+
+    def shard_merge(self, state: List[SharedCache], partials: Sequence[dict],
+                    combiner=None) -> SharedCache:
+        """Coordinator merge: second-stage reduce the stashed per-shard
+        partial tables (plus a partial of any rows the merge pass itself
+        delivered — a cut-ancestored aggregate's real input arrives then)
+        into the exact serial result.  ``combiner`` is the optional mesh
+        route reducer (on the backend's device); the host
+        ``reduce_partials`` is the reference."""
+        from ..core.shard.merge import reduce_partials
+        own = self.shard_partial(state)
+        tables = list(partials)
+        if own is not None:
+            tables.append(own)
+        if not tables:
+            return self.shard_empty()
+        plan = self._partial_plan()
+        second = {p: ("sum" if op == "count" else op)
+                  for p, (_, op) in plan.items()}
+        cat = {c: np.concatenate([np.asarray(t[c]) for t in tables])
+               for c in (*self.group_by, *plan)}
+        merged = combiner(cat, self.group_by, second) \
+            if combiner is not None else None
+        if merged is None:
+            merged = reduce_partials(cat, self.group_by, second)
+        group_cols, part_cols = merged
+        cols = dict(zip(self.group_by, group_cols))
+        for out, (col, op) in self.aggs.items():
+            if op == "avg":
+                s = part_cols[out + _PARTIAL_SEP + "sum"]
+                cnt = part_cols[out + _PARTIAL_SEP + "count"]
+                # divide in the sum's dtype — same single rounding as the
+                # one-shot kernel (and as _serving_finish's emit)
+                vals = [s[i] / s[i].dtype.type(cnt[i]) for i in range(len(s))]
+                cols[out] = (np.array(vals, dtype=vals[0].dtype) if vals
+                             else np.array([], dtype=np.float64))
+            else:
+                cols[out] = part_cols[out]
+        n_groups = len(next(iter(cols.values()))) if cols else 1
+        self.rows_out += n_groups
+        return SharedCache(cols, n_groups)
+
 
 class Sort(BlockComponent):
     """Total sort — block component (needs all rows)."""
@@ -948,6 +1031,18 @@ class CollectSink(SinkComponent):
     def clear(self) -> None:
         with self._lock:
             self._buf.clear()
+
+    # ------------------------------------------------------------ sharded
+    def drain(self) -> List[SharedCache]:
+        """Take the buffered caches (the shard runtime harvests each shard
+        pass's writes, then reassembles the serial buffer via reinject)."""
+        with self._lock:
+            buf, self._buf = self._buf, []
+            return buf
+
+    def reinject(self, caches: List[SharedCache]) -> None:
+        with self._lock:
+            self._buf.extend(caches)
 
     # locks don't pickle (process shard route); rebuilt on load
     _UNPICKLABLE = SinkComponent._UNPICKLABLE + ("_lock",)

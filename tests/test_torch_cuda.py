@@ -438,6 +438,44 @@ def test_kettle_on_torch_matches_torch_cpu(dev, qname):
             np.testing.assert_array_equal(got.table[col], w)
 
 
+@pytest.mark.parametrize("qname", ["Q4.1", "Q1.1"])
+@pytest.mark.parametrize("route", ["mesh", "inline"])
+def test_sharded_on_torch_matches_torch_cpu(dev, qname, route):
+    """A 4-shard run through Session.run on the card against the same run
+    on torch_cpu: keys, order and dtypes identical, sums within 1e-5, the
+    same transfer and dispatch counters; the mesh route's merge launches
+    the segment-sum kernel, and a repeated run on the card is
+    bit-identical."""
+    import repro_torch
+    data = ssb.generate(lineorder_rows=60_000, customers=2_000,
+                        suppliers=300, parts=1_500, seed=7)
+    res = {}
+    for backend in ("torch", "torch", "torch_cpu"):
+        reset_launches()
+        got = repro_torch.Session(backend=backend, metadata=None).run(
+            queries.BUILDERS[qname](data), fuse=True, num_splits=4, shards=4,
+            shard_impl=route)
+        torch.cuda.synchronize()
+        res.setdefault(backend, []).append((got, launch_counts()))
+    (a, counts), (b, _) = res["torch"]
+    want, cpu_counts = res["torch_cpu"][0]
+    assert a.run.shard.impl == route and a.run.degradations == 0
+    assert counts["hash_probe"] > 0 and cpu_counts["hash_probe"] == 0
+    if route == "mesh":
+        # the combiner's float sums, plus Q1.1's four global partials
+        assert counts["segment_sum"] == (1 if qname == "Q4.1" else 5)
+    for name in ("h2d_transfers", "d2h_transfers", "dispatch_calls"):
+        assert getattr(a.run, name) == getattr(want.run, name), name
+    assert list(a.table) == list(want.table)
+    for col, w in want.table.items():
+        assert a.table[col].tobytes() == b.table[col].tobytes(), col
+        assert a.table[col].dtype == w.dtype, col
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(a.table[col], w, rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(a.table[col], w)
+
+
 # ------------------------------------------------------- LM-path kernels
 # Flash attention: the kernel against the plain version on the same card
 # tensors.  fp32 (the FMA kernel) within rtol 2e-4 / atol 2e-5 (both sum the

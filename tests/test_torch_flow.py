@@ -164,10 +164,26 @@ def test_segment_kernel_failure_raises(data, monkeypatch):
 
 
 def test_sharded_run_is_refused(data):
+    """``shards=2`` is not refused: the same call runs sharded (``auto``
+    takes the mesh route on torch_cpu) and gives the serial run's keys,
+    order, counts and dtypes, with float sums within rtol 1e-5."""
     q = queries.build_q4(data[0])
-    with pytest.raises(NotImplementedError, match="shards=2"):
-        OptimizedEngine(q.flow, OptimizeOptions(backend="torch_cpu",
-                                                shards=2)).run()
+    OptimizedEngine(q.flow, OptimizeOptions(backend="torch_cpu")).run()
+    want = q.sink.result()
+    q = queries.build_q4(data[0])
+    run = OptimizedEngine(q.flow, OptimizeOptions(backend="torch_cpu",
+                                                  shards=2)).run()
+    got = q.sink.result()
+    assert run.shards == 2 and run.shard.impl == "mesh"
+    assert run.degradations == 0
+    assert sum(run.shard_rows) == SIZES["lineorder_rows"]
+    assert list(got) == list(want)
+    for col, w in want.items():
+        assert got[col].dtype == w.dtype, col
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got[col], w, rtol=1e-5, atol=0)
+        else:
+            np.testing.assert_array_equal(got[col], w)
 
 
 def test_metadata_xml_roundtrip():
@@ -192,7 +208,8 @@ def test_port_imports_no_jax():
             "repro_torch.etl, repro_torch.core.backend.torch_backend, "
             "repro_torch.kernels, repro_torch.session, "
             "repro_torch.etl.kettle, repro_torch.core.simulate, "
-            "repro_torch.obs.report, repro_torch.configs.ssb_etl; "
+            "repro_torch.obs.report, repro_torch.configs.ssb_etl, "
+            "repro_torch.core.shard.proc, repro_torch.core.shard.mesh; "
             "from repro_torch import (Session, flow, FlowBuilder, "
             "ServeSession, TickResult, replay_deltas, ServingEngine); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -362,8 +362,8 @@ def test_serve_rejects_adaptive_optimizer():
 
 def test_serve_rejects_explicit_shards_like_the_reference(monkeypatch):
     """An explicit shards > 1 raises the reference's ValueError at the first
-    tick, not the port's NotImplementedError; ambient REPRO_SHARDS is
-    ignored, as in the reference."""
+    tick (a batch run shards, a serving session does not); ambient
+    REPRO_SHARDS is ignored, as in the reference."""
     srv, data = _tiny_session(shards=2)
     try:
         with pytest.raises(ValueError, match="sharded execution"):
