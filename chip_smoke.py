@@ -48,6 +48,11 @@ Phases (any failure raises and the script exits non-zero):
    degradation and every row on one shard; each prints its wall, rows/s,
    shard rows, transfers, shuffle bytes and kernel launches, counted from
    0 just before it (the process route's include its workers').
+   Then kernel failures on SF1 Q4.1 (streaming, fused, 8 splits): the
+   probe's CUDA entry raising once, the radix groupby's raising once, and a
+   kernel library that cannot load; the card has no degradation ladder, so
+   each run must abort with its error and record no step.  Every other run
+   must record no degradation.
    Then served Q4.1: the declarative Q4.1 flow through ``Session.serve``,
    SF1's lineorder in 12 ticks and an empty one; the replayed deltas must
    equal a batch run of the flow, each tick must go through the probe (4 x
@@ -1146,6 +1151,89 @@ def phase_sharded(data, expect: dict, serial: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+#  Phase 3c: kernel failures abort
+# ---------------------------------------------------------------------------
+LAUNCH_ERROR = "CUDA error 7 (too many resources requested for launch)"
+
+
+class FailOnce:
+    """Test double for a kernel's CUDA entry point: its first call raises a
+    launch-style error, later calls go to the real entry.  Installed and
+    removed by the fault phase."""
+
+    def __init__(self, module, entry: str, kernel: str):
+        self.module, self.entry, self.kernel = module, entry, kernel
+        self.real = getattr(module, entry)
+        self.failed = False
+
+    def __call__(self, *args, **kwargs):
+        if not self.failed:
+            self.failed = True
+            raise RuntimeError(f"{self.kernel}: {LAUNCH_ERROR}")
+        return self.real(*args, **kwargs)
+
+    def __enter__(self):
+        setattr(self.module, self.entry, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.entry, self.real)
+        return False
+
+
+def phase_faults(data) -> None:
+    """Kernel failures on SF1 Q4.1 through ``Session.run`` (streaming,
+    fused, 8 splits): the probe's CUDA entry raising once, the radix
+    groupby's raising once, and a kernel library that cannot load.  The
+    card has no degradation ladder, so each run must abort with its error,
+    record no degradation and leave the backend on no other route.  Prints
+    each run's time to the abort."""
+    import repro_torch
+    from repro_torch.core import faults, resolve_backend
+    from repro_torch.etl.queries import build_q4
+    from repro_torch.kernels import KernelLibraryError, _cuda
+    from repro_torch.kernels.hash_join import ops as probe_ops
+    from repro_torch.kernels.radix_groupby import ops as groupby_ops
+    bk = resolve_backend("torch")
+    session = repro_torch.Session(backend="torch", metadata=None)
+
+    def aborts(label, exc_type, double):
+        t0 = time.perf_counter()
+        with double, faults.fault_recorder() as rec:
+            try:
+                session.run(build_q4(data), engine="streaming", fuse=True,
+                            num_splits=8)
+            except exc_type as e:
+                torch.cuda.synchronize()
+                log(f"  {label}: aborted with {type(e).__name__}: {e} "
+                    f"after {time.perf_counter() - t0:.4f}s")
+            else:
+                raise AssertionError(f"{label}: the run did not abort")
+        if rec.degradations or bk._join_route or bk._groupby_route:
+            raise AssertionError(f"{label}: stepped a ladder: "
+                                 f"{[d.spec() for d in rec.degradations]}")
+
+    class NoLibrary:
+        """``_cuda.library`` raising as a library that cannot load does."""
+        def __call__(self):
+            raise KernelLibraryError("the CUDA kernel library could not be "
+                                     "built or loaded")
+
+        def __enter__(self):
+            self.real, _cuda.library = _cuda.library, self
+
+        def __exit__(self, *exc):
+            _cuda.library = self.real
+            return False
+
+    aborts("Q4.1 probe failing once", RuntimeError,
+           FailOnce(probe_ops, "hash_probe_cuda", "hash_probe"))
+    aborts("Q4.1 radix groupby failing once", RuntimeError,
+           FailOnce(groupby_ops, "radix_groupby_cuda", "radix_groupby"))
+    aborts("Q4.1 library that cannot load", KernelLibraryError, NoLibrary())
+
+
+# ---------------------------------------------------------------------------
 #  Phase 3b: served Q4.1
 # ---------------------------------------------------------------------------
 #: micro-batches the served phase splits SF1's lineorder into; an empty tick
@@ -1626,6 +1714,9 @@ def main() -> int:
     log(f"sharded runs (SSB SF1, backend torch, fused, streaming, 8 splits):")
     for k, v in phase_sharded(data, expect, serial).items():
         launches[k] += v
+    log("kernel failures (SSB SF1 Q4.1, backend torch, streaming, fused, "
+        "8 splits):")
+    phase_faults(data)
     log(f"served Q4.1 (SSB SF1 in {SERVE_TICKS} ticks and an empty one, "
         f"backend torch, fused, 8 splits):")
     served = phase_served_q41(data, expect, args.profile)

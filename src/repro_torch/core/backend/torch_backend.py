@@ -24,6 +24,14 @@ The backend named ``torch`` runs on CUDA and raises when there is none; it
 never moves to the CPU by itself.  ``torch_cpu`` is the same class pinned
 to the CPU, where every kernel wrapper runs its plain torch version.
 
+Degradation ladders (``torch_cpu`` only): a kernel route that fails with a
+non-transient error steps ONE rung down and stays there for the backend
+instance's lifetime, recorded as a ``kernel`` ``Degradation``: join
+``reference -> searchsorted``, groupby ``reference -> sort``.  On the card a
+kernel failure raises: no CUDA tensor is ever moved onto another route.  A
+kernel library that cannot be built or loaded
+(``kernels._cuda.KernelLibraryError``) never steps.
+
 Every host->device / device->host crossing is recorded in ``CacheStats``
 (scoped ``record_transfer``) at the same places as in the reference's jax
 backend, so the transfer counters of a flow agree between the two.
@@ -37,7 +45,7 @@ from __future__ import annotations
 import threading
 import time
 import weakref
-from typing import Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -114,6 +122,13 @@ class TorchBackend(Backend):
     #: group-id space the radix kernel partitions)
     _DENSE_MAX_ROWS = 1 << 24
     _DENSE_MAX_CELLS = 1 << 20
+    #: kernel degradation ladders of ``torch_cpu`` (left = fastest, right =
+    #: safest): on a non-transient kernel failure the route walks ONE rung
+    #: right and stays there for this backend instance's lifetime.  ``auto``
+    #: is rung 0.  The card has no ladder: a kernel that fails on CUDA
+    #: tensors raises, since any other route would hide it.
+    _LADDERS = {"join": ("reference", "searchsorted"),
+                "groupby": ("reference", "sort")}
 
     def __init__(self, device: str = "cuda") -> None:
         dev = torch.device(device)
@@ -132,6 +147,38 @@ class TorchBackend(Backend):
         self._views: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
         self._views_lock = threading.Lock()
         self._dims_lock = threading.Lock()
+        # sticky degradation-ladder routes; None => follow the env config
+        self._join_route: Optional[str] = None
+        self._groupby_route: Optional[str] = None
+        # one step at a time: pipeline threads failing on the same rung
+        # step it once and record one Degradation
+        self._route_lock = threading.Lock()
+
+    def _degraded_impl(self, kind: str, impl: str, exc: BaseException):
+        """Next rung of the ``kind`` kernel ladder after ``impl`` failed with
+        ``exc``, or ``None`` when the failure must propagate instead: always
+        on the card, and otherwise for a failure that ``faults.may_degrade``
+        refuses or one on the ladder's floor.  A chosen rung is recorded as a ``Degradation`` and
+        sticks on this backend instance — later chunks skip the broken
+        kernel."""
+        if self.device.type == "cuda" or not faults.may_degrade(exc):
+            return None
+        ladder = self._LADDERS[kind]
+        i = ladder.index(impl) if impl in ladder else 0   # "auto" => rung 0
+        if i + 1 >= len(ladder):
+            return None
+        attr = "_join_route" if kind == "join" else "_groupby_route"
+        with self._route_lock:
+            cur = getattr(self, attr)
+            if cur in ladder and ladder.index(cur) > i:
+                return cur          # another thread already stepped past
+            nxt = ladder[i + 1]
+            src = ladder[0] if impl == "auto" else impl
+            faults.record_degradation("kernel", src=f"{kind}[{src}]",
+                                      dst=nxt, component=kind,
+                                      error=repr(exc))
+            setattr(self, attr, nxt)
+        return nxt
 
     def _view(self, cache) -> _DeviceCacheView:
         with self._views_lock:
@@ -297,15 +344,28 @@ class TorchBackend(Backend):
                                 ht["max_probes"], impl=impl)
         return idx, found & dev["qualifies"][idx.long()]
 
+    def _probe_laddered(self, dim, vals: torch.Tensor, inject: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``_probe`` on the join route, down the join ladder on failure.
+        ``inject``: the ``kernel`` fault site of an unfused Lookup (a fused
+        segment's lookups are under its own dispatch's site)."""
+        impl = self._join_route or config.join_impl()
+        while True:
+            try:
+                if inject and faults.active():
+                    faults.inject("kernel", component=f"join[{impl}]")
+                return self._probe(dim, vals, impl)
+            except BaseException as e:
+                nxt = self._degraded_impl("join", impl, e)
+                if nxt is None:
+                    raise
+                impl = nxt
+
     def searchsorted_probe(self, dim, vals):
         if len(dim.keys) == 0:
             n = len(vals)
             return (np.zeros(n, dtype=np.int64), np.zeros(n, dtype=bool))
-        v = self.asarray(vals)
-        impl = config.join_impl()
-        if faults.active():
-            faults.inject("kernel", component=f"join[{impl}]")
-        return self._probe(dim, v, impl)
+        return self._probe_laddered(dim, self.asarray(vals), inject=True)
 
     def lookup_gather(self, dim, dim_col: str, idx, matched, default):
         payload = self._dim_payload(dim, dim_col)
@@ -340,14 +400,22 @@ class TorchBackend(Backend):
                     aggs[out] = vals.max()[None]
             return [], aggs
         keys_d = [self.asarray(k) for k in keys]
-        impl = config.groupby_impl()
-        if impl != "sort":
-            if faults.active():
-                faults.inject("kernel", component=f"groupby[{impl}]")
-            dense = self._groupby_dense(keys_d, values, n, impl)
+        impl = self._groupby_route or config.groupby_impl()
+        while impl != "sort":
+            try:
+                if faults.active():
+                    faults.inject("kernel", component=f"groupby[{impl}]")
+                dense = self._groupby_dense(keys_d, values, n, impl)
+            except BaseException as e:
+                nxt = self._degraded_impl("groupby", impl, e)
+                if nxt is None:
+                    raise
+                impl = nxt
+                continue
             if dense is not None:
                 return dense
-        # sort route: key space disqualified for the dense kernel
+            break          # key space disqualified: the sort route
+        # sort route (its sums through the segment-sum kernel)
         order = self._lexsort(keys_d)
         sk = [k[order] for k in keys_d]
         boundary = torch.zeros(n, dtype=torch.bool, device=self.device)
@@ -499,9 +567,6 @@ class _TorchSegmentRunner:
         #: terminal Aggregate, skip the per-chunk compact (the chunk's only
         #: d2h) and hand the keep-mask downstream as a sentinel column
         self.defer_mask = bool(getattr(segment, "defer_cols", None))
-        #: Lookup route inside the segment: the hash-probe kernel unless
-        #: pinned back to the legacy binary search
-        self._join_impl = config.join_impl()
         self._layouts: set = set()
         self.kernel_calls = 0
 
@@ -509,7 +574,11 @@ class _TorchSegmentRunner:
     def _lookup(self, dim, vals: torch.Tensor, return_cols: Dict[str, str],
                 default, env) -> torch.Tensor:
         """The backend's probe and gather over the dim table's device
-        mirror (uploaded once per table, cached on it)."""
+        mirror (uploaded once per table, cached on it).  The probe reads
+        the backend's sticky join route on every call; on ``torch_cpu`` it
+        steps down the join ladder on failure and the segment carries on in
+        its runner (nothing is written back before the runner's end, so a
+        step retries against unchanged state); on the card it raises."""
         bk = self._bk
         if len(dim.keys) == 0:               # degenerate dim table
             idx = torch.zeros(vals.shape[0], dtype=torch.int32,
@@ -517,7 +586,7 @@ class _TorchSegmentRunner:
             matched = torch.zeros(vals.shape[0], dtype=torch.bool,
                                   device=bk.device)
         else:
-            idx, matched = bk._probe(dim, vals, self._join_impl)
+            idx, matched = bk._probe_laddered(dim, vals, inject=False)
         for out_name, dim_col in return_cols.items():
             env[out_name] = bk.lookup_gather(dim, dim_col, idx, matched,
                                              default)

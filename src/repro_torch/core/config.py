@@ -31,6 +31,7 @@ Every setting also has a first-class API equivalent (see the README table):
     REPRO_FAULTS         core.faults.fault_scope(FaultPlan.parse(...))
     REPRO_RETRY_MAX      core.faults.retry_call(max_retries=...)
     REPRO_RETRY_BACKOFF  core.faults.retry_call(backoff=...)
+    REPRO_DEGRADE        debug only (disables the degradation ladders)
     REPRO_SHARDS         OptimizeOptions(shards=...) / Session.run(shards=...)
     REPRO_SHARD_IMPL     OptimizeOptions(shard_impl=...)
 
@@ -98,6 +99,9 @@ ENV_RETRY_MAX = "REPRO_RETRY_MAX"
 #: initial retry backoff in seconds (doubles per attempt, capped at
 #: ``core.faults.RETRY_BACKOFF_CAP_S``)
 ENV_RETRY_BACKOFF = "REPRO_RETRY_BACKOFF"
+#: "0" disables the graceful-degradation ladders (failing kernels/segments
+#: then abort instead of falling back to slower routes)
+ENV_DEGRADE = "REPRO_DEGRADE"
 #: shard count for the OptimizedEngine/StreamingEngine sharded-execution
 #: route when ``OptimizeOptions.shards`` is unset: 1 (default) runs the
 #: serial path, N>1 hash/range-partitions sources across N shards, 0 lets
@@ -272,6 +276,12 @@ def retry_backoff() -> float:
     return max(0.0, s)
 
 
+def degrade_enabled() -> bool:
+    """Graceful-degradation ladders switch (``REPRO_DEGRADE=0`` => off:
+    failing kernel routes abort instead of falling back)."""
+    return _raw(ENV_DEGRADE) != "0"
+
+
 def shards() -> int:
     """Shard count when ``OptimizeOptions.shards`` is unset
     (``REPRO_SHARDS``, default 1 = serial; 0 = planner-chosen)."""
@@ -314,6 +324,7 @@ def snapshot() -> Dict[str, object]:
         "faults": faults_spec(),
         "retry_max": retry_max(),
         "retry_backoff": retry_backoff(),
+        "degrade": degrade_enabled(),
         "shards": shards(),
         "shard_impl": shard_impl(),
     }

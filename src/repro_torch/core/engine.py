@@ -665,7 +665,10 @@ class ServingEngine:
     # ----------------------------------------------------------------- tick
     def tick(self, watermark_lag: Optional[float] = None) -> Dict[str, object]:
         """Run one micro-batch over the source's CURRENT table.  Returns the
-        tick's wall time and its exact per-tick ``CacheStats`` snapshot."""
+        tick's wall time, its exact per-tick ``CacheStats`` snapshot and the
+        degradation-ladder steps it took (a failing kernel steps its ladder
+        inside the tick; the resident backend keeps the route for later
+        ticks)."""
         if self._closed:
             raise RuntimeError("serving engine is closed")
         if self.tracer is None and (obs_trace.ACTIVE.get()
@@ -694,7 +697,8 @@ class ServingEngine:
             t0 = time.perf_counter()
             with cache_stats_scope() as stats, \
                     obs_trace.measured(self.tracer), \
-                    obs_trace.span("tick", f"tick-{i}", tick=i):
+                    obs_trace.span("tick", f"tick-{i}", tick=i), \
+                    faults.fault_recorder() as frec:
                 try:
                     executor.execute()
                 finally:
@@ -708,7 +712,8 @@ class ServingEngine:
             if watermark_lag is not None:
                 m.gauge_set("watermark_lag_s", watermark_lag)
                 m.gauge_max("watermark_lag_s_max", watermark_lag)
-        return {"tick": i, "wall_s": wall, "cache_stats": stats.snapshot()}
+        return {"tick": i, "wall_s": wall, "cache_stats": stats.snapshot(),
+                "degradation_events": [d.spec() for d in frec.degradations]}
 
     # ---------------------------------------------------------------- close
     def close(self) -> Dict[str, object]:

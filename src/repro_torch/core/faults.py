@@ -82,7 +82,8 @@ from ..obs import trace as obs_trace
 
 __all__ = [
     "FaultError", "TransientFault", "PermanentFault", "PoisonFault",
-    "classify", "FaultRule", "FaultPlan", "fault_scope", "active", "inject",
+    "classify", "may_degrade", "FaultRule", "FaultPlan", "fault_scope",
+    "active", "inject",
     "retry_call", "with_retries", "backoff_schedule", "RETRY_BACKOFF_CAP_S",
     "Degradation", "fault_recorder", "record_fault", "record_retry",
     "record_degradation", "snapshot_cache", "restore_cache",
@@ -136,6 +137,19 @@ def classify(exc: BaseException) -> str:
     if isinstance(exc, _TRANSIENT_REAL):
         return "transient"
     return "permanent"
+
+
+def may_degrade(exc: BaseException) -> bool:
+    """Whether a failure may step a degradation ladder.  Never for a
+    transient fault (replay retries the SAME route), an explicitly injected
+    permanent or poison fault (it must abort promptly), an error whose
+    class sets ``never_degrade`` (a kernel library that cannot be built or
+    loaded: a slower route would hide a kernel that is not there), or with
+    ``REPRO_DEGRADE=0``."""
+    return not (classify(exc) == "transient"
+                or isinstance(exc, (PermanentFault, PoisonFault))
+                or getattr(exc, "never_degrade", False)
+                or not config.degrade_enabled())
 
 
 # ---------------------------------------------------------------------------

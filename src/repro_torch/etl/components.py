@@ -411,6 +411,16 @@ class FusedExpression(Component):
         return [cache]
 
 
+def segment_fallback_allowed(backend) -> bool:
+    """Whether a ``FusedSegment`` whose runner fails may step onto the host
+    reference pass: on a host backend (``numpy``, ``torch_cpu``) yes, where
+    that pass is what the runner computes anyway; on a backend whose device
+    is a CUDA card never, since the host pass would hide a device failure
+    behind a slower route."""
+    device = getattr(backend, "device", None)
+    return getattr(device, "type", "cpu") != "cuda"
+
+
 class FusedSegment(Component):
     """A maximal row-synchronized chain (Filter / Expression / Lookup /
     Project / Converter and fused combinations) collapsed into ONE pipeline
@@ -546,17 +556,46 @@ class FusedSegment(Component):
         return out
 
     def _dispatch(self, bk, cache: SharedCache) -> None:
-        """One compiled-segment dispatch.  A failure of the compiled runner
-        raises: a kernel that fails to build or launch is never hidden
-        behind the host reference pass.  Transient faults escalate to
-        chunk-level replay, which retries them from its own snapshot."""
+        """One compiled-segment dispatch with the segment's degradation
+        rung: on a host backend (``segment_fallback_allowed``) a
+        non-transient, non-injected failure of the compiled runner falls
+        back to the backend-agnostic host reference pass
+        (``Backend.compile_segment`` base implementation, bit-identical to
+        the unfused chain) and the fallback sticks for the rest of the
+        component's life — later chunks skip the broken runner.  On the
+        card every failure of the runner propagates: the card never falls
+        back to the host pass.  A failure
+        that ``faults.may_degrade`` refuses propagates too (a transient one
+        to chunk-level replay).
+
+        The pre-dispatch snapshot is taken only under active fault
+        injection: real kernel failures surface before the runner's
+        write-back mutates the cache."""
         runner = self._compiled.get(bk.name)
         if runner is None:
             runner = self._compiled[bk.name] = bk.compile_segment(self)
-        if faults.active():
-            faults.inject("kernel", component=self.name,
-                          split=cache.split_index)
-        runner(cache)
+        snap = faults.snapshot_cache(cache) if faults.active() else None
+        try:
+            if snap is not None:
+                faults.inject("kernel", component=self.name,
+                              split=cache.split_index)
+            runner(cache)
+            return
+        except BaseException as e:
+            if (not faults.may_degrade(e)
+                    or not segment_fallback_allowed(bk)
+                    or getattr(runner, "_is_reference", False)):
+                raise
+            from ..core.backend.base import Backend as _Base
+            faults.record_degradation(
+                "kernel", src=f"segment[{bk.name}]", dst="reference",
+                component=self.name, error=repr(e))
+            ref = _Base.compile_segment(bk, self)
+            ref._is_reference = True
+            self._compiled[bk.name] = ref
+            if snap is not None:
+                faults.restore_cache(cache, snap)
+            ref(cache)
 
     def _run(self, cache: SharedCache) -> List[SharedCache]:
         bk = self.get_backend()

@@ -21,6 +21,6 @@
 # plain version on a CPU tensor, a launch counter) and ref.py (the plain
 # torch version the CPU tests and chip_smoke.py hold the kernel against).
 # _cuda.py builds csrc/*.cu with nvcc at first use and counts launches.
-from ._cuda import launch_counts, reset_launches
+from ._cuda import KernelLibraryError, launch_counts, reset_launches
 
-__all__ = ["launch_counts", "reset_launches"]
+__all__ = ["KernelLibraryError", "launch_counts", "reset_launches"]

@@ -61,6 +61,19 @@ _SIGNATURES = {
                          _I, _P),
 }
 
+
+class KernelLibraryError(RuntimeError):
+    """The kernel library could not be built or loaded.
+
+    A ``RuntimeError``, so ``core.faults.classify`` reads it as permanent:
+    a retry cannot make a missing or broken library load.  The degradation
+    ladders never step on it either (``never_degrade``, read by
+    ``core.faults.may_degrade``): a slower route would hide a kernel that
+    is not there."""
+
+    never_degrade = True
+
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: what the last build printed (nvcc -Xptxas -v) and how long it took
@@ -94,8 +107,9 @@ def _nvcc() -> str:
                               "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
-                       "built at first use and need the CUDA toolkit")
+    raise KernelLibraryError("nvcc not found: the CUDA kernels of "
+                             "repro_torch are built at first use and need "
+                             "the CUDA toolkit")
 
 
 def _source_hash(sources) -> str:
@@ -141,14 +155,15 @@ def _build() -> Path:
             failed.append(src.name)
     build_log = "".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        raise KernelLibraryError(f"nvcc failed on {failed}:\n{build_log}")
     tmp_lib = work / LIB_NAME
     link = subprocess.run(
         [nvcc, "-shared", "-o", str(tmp_lib),
          *[str(obj) for _, obj, _ in procs]],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
-        raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        raise KernelLibraryError(
+            f"linking the kernels failed:\n{link.stdout}")
     os.replace(tmp_lib, lib)           # atomic: a reader never sees a half
     shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
@@ -158,10 +173,11 @@ def _build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first call.
 
-    An ``OSError`` from the build (no ``nvcc``) or the load is re-raised as a
-    ``RuntimeError`` naming the library: ``core.faults.classify`` reads an
-    ``OSError`` as transient, and a retry cannot make a missing or broken
-    library load, so it must abort, not be retried and dead-lettered."""
+    Every build or load failure raises :class:`KernelLibraryError`; an
+    ``OSError`` (no ``nvcc``, a library that does not load) is re-raised as
+    one naming the library: ``core.faults.classify`` reads an ``OSError`` as
+    transient, and a retry cannot make a missing or broken library load, so
+    it must abort, not be retried, dead-lettered or stepped around."""
     global _lib
     if _lib is None:
         with _lock:
@@ -170,11 +186,15 @@ def library() -> ctypes.CDLL:
                 try:
                     lib = ctypes.CDLL(str(_build()))
                 except OSError as e:
-                    raise RuntimeError(
+                    raise KernelLibraryError(
                         f"the CUDA kernel library {path} could not be built "
                         f"or loaded: {e!r}") from e
                 for name, argtypes in _SIGNATURES.items():
-                    fn = getattr(lib, name)
+                    fn = getattr(lib, name, None)
+                    if fn is None:
+                        raise KernelLibraryError(
+                            f"the CUDA kernel library {path} has no entry "
+                            f"point {name}")
                     fn.argtypes = list(argtypes)
                     fn.restype = ctypes.c_int
                 lib.repro_cuda_error_string.argtypes = [ctypes.c_int]

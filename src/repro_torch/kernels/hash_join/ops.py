@@ -100,9 +100,10 @@ def hash_probe_cuda(table: PackedTable, val_cols: Sequence[torch.Tensor],
     if n == 0:
         return idx, found
     ptrs = [v.data_ptr() for v in val_cols] + [None] * (MAX_KEY_COLS - k)
+    lib = _cuda.library()
     with _cuda.device_guard(idx):
         _cuda.count_launch("hash_probe")
-        rc = _cuda.library().repro_hash_probe(
+        rc = lib.repro_hash_probe(
             slots.data_ptr(), k, table.size, int(max_probes), n, *ptrs,
             idx.data_ptr(), found.data_ptr(), _cuda.stream_ptr(idx))
     _cuda.check(rc, "hash_probe")

@@ -391,6 +391,10 @@ class TickResult:
     #: buffer (poison fault, or transient retries exhausted) — the delta is
     #: empty and the session stays alive
     dead_lettered: bool = False
+    #: degradation-ladder steps this tick took (``Degradation.spec()``
+    #: dicts): a kernel that failed non-transiently stepped one rung and
+    #: the tick completed on it; later ticks stay on that rung
+    degradation_events: List[Dict[str, object]] = field(default_factory=list)
 
     @property
     def rows_out(self) -> int:
@@ -527,7 +531,8 @@ class ServeSession:
                             delta=delta, watermark=self.watermark,
                             wall_s=info["wall_s"],
                             cache_stats=info["cache_stats"],
-                            retries=attempt)
+                            retries=attempt,
+                            degradation_events=info["degradation_events"])
         self.history.append(result)
         cap = _config.serve_history()
         if len(self.history) > cap:

@@ -476,6 +476,94 @@ def test_sharded_on_torch_matches_torch_cpu(dev, qname, route):
             np.testing.assert_array_equal(a.table[col], w)
 
 
+# ------------------------------------------------------- kernel failures
+# The card has no degradation ladder: a kernel that fails on CUDA tensors
+# aborts the run with its error and records no step.  Each test runs on a
+# fresh ``torch`` backend; after the abort, the same backend runs Q4.1 again
+# and matches torch_cpu, so the abort left no route behind.
+LAUNCH_ERROR = "CUDA error 7 (too many resources requested for launch)"
+
+
+@pytest.fixture
+def fresh_torch():
+    """A fresh ``torch`` backend for the test, dropped afterwards and the
+    old one put back."""
+    from repro_torch.core.backend import base as registry
+    saved = registry._instances.pop("torch", None)
+    yield
+    registry._instances.pop("torch", None)
+    if saved is not None:
+        registry._instances["torch"] = saved
+
+
+def _install_failure(m, failure):
+    """Make ``failure`` happen through ``m`` (a monkeypatch context); returns
+    the error type the run must abort with."""
+    from repro_torch.core.backend.torch_backend import TorchBackend
+    from repro_torch.kernels import KernelLibraryError, _cuda
+    from repro_torch.kernels.hash_join import ops as probe_ops
+    from repro_torch.kernels.radix_groupby import ops as groupby_ops
+    if failure in ("probe", "groupby"):
+        module, entry = ((probe_ops, "hash_probe_cuda") if failure == "probe"
+                         else (groupby_ops, "radix_groupby_cuda"))
+        real, failed = getattr(module, entry), []
+
+        def fails_once(*args, **kwargs):
+            if not failed:
+                failed.append(1)
+                raise RuntimeError(f"{entry}: {LAUNCH_ERROR}")
+            return real(*args, **kwargs)
+        m.setattr(module, entry, fails_once)
+        return RuntimeError
+    if failure == "segment":
+        def broken(self, segment):
+            def runner(cache):
+                raise RuntimeError(f"segment: {LAUNCH_ERROR}")
+            return runner
+        m.setattr(TorchBackend, "compile_segment", broken)
+        return RuntimeError
+
+    def no_library():
+        raise KernelLibraryError("the CUDA kernel library could not be "
+                                 "built or loaded")
+    m.setattr(_cuda, "library", no_library)
+    return KernelLibraryError
+
+
+@pytest.mark.parametrize("failure", ["probe", "groupby", "segment",
+                                     "library"])
+def test_degrade_never_on_the_card(dev, fresh_torch, monkeypatch, failure):
+    """A probe and a radix groupby whose CUDA entry fails once, a fused
+    segment whose runner fails outside the probe, and a kernel library that
+    cannot load: each run aborts with its error and records no step, the
+    backend keeps no route, and a rerun on it matches torch_cpu."""
+    import repro_torch
+    from repro_torch.core import faults, resolve_backend
+    data = ssb.generate(lineorder_rows=20_000, customers=600, suppliers=60,
+                        parts=800, seed=5)
+
+    def run(backend):
+        return repro_torch.Session(backend=backend, metadata=None).run(
+            queries.build_q4(data), fuse=True, num_splits=4)
+    with monkeypatch.context() as m:
+        expected = _install_failure(m, failure)
+        with faults.fault_recorder() as rec:
+            with pytest.raises(expected):
+                run("torch")
+    assert rec.degradations == []
+    bk = resolve_backend("torch")
+    assert bk._join_route is None and bk._groupby_route is None
+    got, want = run("torch"), run("torch_cpu")
+    assert got.run.degradations == 0
+    assert list(got.table) == list(want.table)
+    for col, w in want.table.items():
+        assert got.table[col].dtype == w.dtype, col
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got.table[col], w, rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(got.table[col], w)
+
+
 # ------------------------------------------------------- LM-path kernels
 # Flash attention: the kernel against the plain version on the same card
 # tensors.  fp32 (the FMA kernel) within rtol 2e-4 / atol 2e-5 (both sum the

@@ -145,9 +145,15 @@ def test_torch_backend_needs_cuda():
     assert resolve_backend("torch_cpu").device.type == "cpu"
 
 
-def test_segment_kernel_failure_raises(data, monkeypatch):
-    """A fused segment whose device runner fails aborts the run with that
-    error: the port has no fallback to the host reference pass."""
+@pytest.mark.parametrize("degrade", ["on", "off"])
+def test_segment_kernel_failure_raises(data, monkeypatch, degrade):
+    """A fused segment whose device runner fails: on ``torch_cpu`` the
+    segment steps onto the host reference pass and records one
+    ``segment[torch_cpu] -> reference`` degradation, with the sink and the
+    transfer and dispatch counters of the reference's run whose runner
+    fails the same way; with ``REPRO_DEGRADE=0`` the run aborts with the
+    runner's error."""
+    from repro.core.backend.jax_backend import JaxBackend
     from repro_torch.core.backend.torch_backend import TorchBackend
 
     def broken(self, segment):
@@ -157,10 +163,34 @@ def test_segment_kernel_failure_raises(data, monkeypatch):
         return runner
 
     monkeypatch.setattr(TorchBackend, "compile_segment", broken)
+    monkeypatch.setattr(JaxBackend, "compile_segment", broken)
     q = queries.build_q4(data[0])
-    with pytest.raises(RuntimeError, match="invalid device function"):
-        OptimizedEngine(q.flow, OptimizeOptions(
-            backend="torch_cpu", fuse_segments=True, num_splits=2)).run()
+    opts = OptimizeOptions(backend="torch_cpu", fuse_segments=True,
+                           num_splits=2)
+    if degrade == "off":
+        monkeypatch.setenv("REPRO_DEGRADE", "0")
+        with pytest.raises(RuntimeError, match="invalid device function"):
+            OptimizedEngine(q.flow, opts).run()
+        return
+    run = OptimizedEngine(q.flow, opts).run()
+    rq = ref_queries.build_q4(data[1])
+    rrun = RefOptimized(rq.flow, RefOptions(backend="jax", fuse_segments=True,
+                                            num_splits=2)).run()
+    got, want = q.sink.result(), rq.sink.result()
+    assert list(got) == list(want)
+    for col, w in want.items():
+        assert got[col].dtype == w.dtype, col
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got[col], w, rtol=1e-5, atol=0)
+        else:
+            np.testing.assert_array_equal(got[col], w)
+    assert run.degradations == rrun.degradations == 1
+    (event,) = run.degradation_events
+    assert (event["kind"], event["src"], event["dst"]) == (
+        "kernel", "segment[torch_cpu]", "reference")
+    assert rrun.degradation_events[0]["dst"] == "reference"
+    for name in COUNTERS + ("h2d_bytes", "d2h_bytes"):
+        assert getattr(run, name) == getattr(rrun, name), name
 
 
 def test_sharded_run_is_refused(data):
