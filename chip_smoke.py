@@ -15,9 +15,12 @@ Phases (any failure raises and the script exits non-zero):
    card, at the shapes its main path gives it (SSB scale factor 1 for the
    ETL kernels; stablelm-3b and falcon-mamba-7b prefill for flash attention
    and the selective scan; flash on both of its routes, bf16 on the tensor
-   cores and fp32 in FMAs; the scan on bf16 and fp32 delta/x, with its
-   lane splits timed) plus small cases for the options those paths do
-   not use, twice (bit-identical), with its median time (CUDA events), its
+   cores and fp32 in FMAs, and in bf16 at mixtral-8x7b's and grok-1's
+   prefill shapes too, with their device times from CUDA events around 20
+   launches back to back; the scan on bf16 and fp32
+   delta/x, with its lane splits timed) plus small cases for the options
+   those paths do not use, twice (bit-identical), with its median time
+   (CUDA events), its
    bound, the plain version's time and a PyTorch library call as a
    yardstick the port never calls.  For each grouped-sum case, the device
    kernels one call launches and their device time (``torch.profiler``);
@@ -61,16 +64,20 @@ Phases (any failure raises and the script exits non-zero):
    Its launches are counted from 0 on their own and added to the kernels
    line's.  Then a keyed Aggregate with 40 sum outputs, more than one
    grouped-sum launch takes, on ``torch`` against ``torch_cpu``.
-4. LM serving path, once for stablelm-3b and once for falcon-mamba-7b at
-   their full published widths (``configs/<arch>.CONFIG``, random weights
-   from a seed): ``BatchedServer`` serves 8 requests (waves of 4, prompts of
-   2048 tokens from numpy seed 0, 32 new tokens, greedy) twice, with the
-   counters set to 0 just before and read just after.  Each prefill must
-   launch its kernel once per layer and the second run must give the same
-   tokens.  Against the fp32 plain route's prefill logits, the fp32 kernel
-   route must agree within F32_LOGITS_ATOL and the bf16 kernel route must
-   be no further off than the bf16 plain route allows (BF16_MARGIN); in
-   fp32, prefill + 4 decode steps must agree with a longer prefill.
+4. LM serving path, once each for stablelm-3b, falcon-mamba-7b,
+   mixtral-8x7b and grok-1-314b at their full published widths
+   (``configs/<arch>.CONFIG``, random weights from a seed); the two moe
+   models, which do not fit the card whole, at 8 of 32 and 4 of 64 layers.
+   ``BatchedServer`` serves 8 requests (waves of 4, prompts of 2048 tokens
+   from numpy seed 0, 32 new tokens, greedy) twice, with the counters set
+   to 0 just before and read just after.  Each prefill must launch its
+   kernel once per layer and the second run must give the same tokens.
+   Against the fp32 plain route's prefill logits, the fp32 kernel route
+   must agree within F32_LOGITS_ATOL and the bf16 kernel route must be no
+   further off than the bf16 plain route allows (BF16_MARGIN); in fp32,
+   prefill + 4 decode steps must agree with a longer prefill, for mixtral
+   also at one prompt past its 4096-token window (4196 + 4 against 4200),
+   with the largest expert load of each MoE prefill against its capacity.
 5. The ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -145,6 +152,23 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, n: int = 20) -> float:
+    """Device time a call of ``fn``, from CUDA events around ``n`` calls
+    launched back to back: the launches queue up on the device, so the
+    host's share of a call is hidden (no profiler session, which would
+    slow every later launch on the host)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_S):
@@ -614,7 +638,7 @@ def _check_close(label, got, want, tol) -> float:
 
 
 def _flash_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window, softcap,
-                dtype, library: bool) -> dict:
+                dtype, library: bool, device: bool = False) -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
 
@@ -640,6 +664,8 @@ def _flash_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window, softcap,
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=G > 1))
+    device_ms = (back_to_back_ms(lambda: flash_attention(
+        q, k, v, impl="cuda", **kw)) if device else None)
     pairs = allowed_pairs(Sq, Skv, causal, window)
     flops = 4 * B * Kh * G * hd * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -650,11 +676,16 @@ def _flash_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window, softcap,
     log(f"  flash_attention[{label}]: B={B} Sq={Sq} Skv={Skv} Kh={Kh} G={G} "
         f"hd={hd} causal={causal} window={window} softcap={softcap} "
         f"{str(dtype).split('.')[-1]} pairs={pairs} max_abs_err={err:.3g} "
-        f"tol={tol} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
-        f"bound_ms={bnd:.4f} ({by}) tflops={flops / ms / 1e9:.2f} "
-        f"share_of_bound={bnd / ms:.4f} bit_stable=True")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bnd, bound_by=by, max_abs_err=err)
+        f"tol={tol} ms={ms:.4f}"
+        f"{f' device_ms={device_ms:.4f}' if device else ''} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={bnd:.4f} ({by}) "
+        f"tflops={flops / ms / 1e9:.2f} share_of_bound={bnd / ms:.4f} "
+        f"bit_stable=True")
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bnd, bound_by=by, max_abs_err=err)
+    if device:
+        out["device_ms"] = device_ms
+    return out
 
 
 def phase_flash_attention(gen) -> dict:
@@ -672,6 +703,16 @@ def phase_flash_attention(gen) -> dict:
     main.update({f"fp32_{k}": fp32[k] for k in ("ms", "plain_ms",
                                                 "library_ms", "bound_ms",
                                                 "max_abs_err")})
+    # the moe models' prefill shapes (4 prompts of 2048 tokens, 8 kv heads
+    # of 128): mixtral-8x7b, G 4 under its 4096 window (the window holds
+    # every causal pair at 2048); grok-1, G 6 with softcap 30, which
+    # scaled_dot_product_attention does not take
+    main["mixtral_prefill"] = _flash_case(
+        "mixtral-8x7b prefill, bf16 tensor cores", gen, 4, 2048, 2048, 8, 4,
+        128, True, 4096, 0.0, bf16, library=True, device=True)
+    main["grok_prefill"] = _flash_case(
+        "grok-1-314b prefill, bf16 tensor cores", gen, 4, 2048, 2048, 8, 6,
+        128, True, 0, 30.0, bf16, library=False, device=True)
     # the options that path does not use: GQA, window, softcap, ragged
     # lengths, Sq != Skv, rows with no allowed key, other head dims
     for args in (("gqa+window+softcap", 2, 300, 300, 2, 4, 128, True, 100,
@@ -1515,6 +1556,42 @@ def _gap(got: torch.Tensor, want: torch.Tensor):
             float((g.argmax(-1) == w.argmax(-1)).float().mean()))
 
 
+def teacher_forcing(arch: str, params, fcfg, toks: torch.Tensor,
+                    gated: bool = True) -> None:
+    """In fp32: prefill all but the last 4 tokens, then 4 decode steps, must
+    give the logits of a prefill of all of them within TF_TOL.
+
+    With MoE layers that is an identity only where no slot is dropped
+    differently: a prefill drops a group's slots past the capacity C, decode
+    (a group of B tokens, C >= 8) never does, and over a batch the longer
+    prefill's groups hold other tokens than the shorter one's.  The loads
+    of the longer prefill show it; ``gated=False`` reports such a run
+    without holding it to TF_TOL."""
+    from repro_torch.models import transformer as tf
+    S = toks.shape[1]
+    lg, cache = tf.forward_prefill(params, {"tokens": toks[:, :S - 4]}, fcfg)
+    cache = tf.grow_cache(cache, fcfg, S)
+    for t in range(S - 4, S):
+        lg, cache = tf.decode_step(params, cache, {"tokens": toks[:, t:t + 1]},
+                                   fcfg)
+    del cache
+    with expert_loads() as loads:
+        lg_full, _ = tf.forward_prefill(params, {"tokens": toks}, fcfg)
+    err, agree = _gap(lg, lg_full)
+    window = (f" (window {fcfg.sliding_window}, {S - 4} mod it = "
+              f"{(S - 4) % fcfg.sliding_window})"
+              if fcfg.sliding_window and S - 4 > fcfg.sliding_window else "")
+    moe = f"; prefill {S}: {loads.summary()}" if loads.layers else ""
+    log(f"  {arch}: fp32 batch {toks.shape[0]}, prefill {S - 4} + 4 decode "
+        f"steps vs prefill {S}{window}: max_abs_err={err:.3g} "
+        f"argmax_agree={agree:.3f} "
+        f"{f'tol={TF_TOL}' if gated else 'not gated'}{moe}")
+    if gated and not torch.allclose(lg.float(), lg_full.float(),
+                                    rtol=TF_TOL[0], atol=TF_TOL[1]):
+        raise AssertionError(f"{arch}: decode disagrees with prefill "
+                             f"({S - 4} + 4 tokens)")
+
+
 def _top_layers(params, n: int):
     """The same parameter tree cut to its first ``n`` layers (views)."""
     def cut(t):
@@ -1523,24 +1600,67 @@ def _top_layers(params, n: int):
     return dict(params, blocks=cut(params["blocks"]))
 
 
+class expert_loads:
+    """Within the block, records each MoE layer's largest expert load (the
+    slots its tokens ask of one expert) in the last group and in any group,
+    beside the capacity C: a load over C drops slots."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.layers = moe, moe.route, []
+
+        def spy(xg, valid, router, k, capacity):
+            r = self.real(xg, valid, router, k, capacity)
+            self.layers.append((int(r.load[-1].max()), int(r.load.max()),
+                                capacity))
+            return r
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+    def summary(self) -> str:
+        last, most, C = (max(col) for col in zip(*self.layers))
+        drops = "slots dropped" if most > C else "none dropped"
+        return (f"largest expert load: last group {last}, any group {most}, "
+                f"against C={C} ({drops})")
+
+
 @torch.no_grad()
 def serve_model(arch: str, kernel: str, ref_depth: int,
-                dev: torch.device, profile: bool = False) -> int:
+                dev: torch.device, profile: bool = False,
+                depth: int = 0) -> int:
     """Serve ``SERVE`` through ``BatchedServer`` twice at the full width of
-    ``arch``; returns the launches of ``kernel`` in those two runs."""
+    ``arch``, cut to its first ``depth`` layers where given (a model that
+    does not fit the card); returns the launches of ``kernel`` in those two
+    runs."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.serve import BatchedServer, make_requests
     from repro_torch.models import transformer as tf
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full.replace(n_layers=depth) if depth else full
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tf.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"{arch}: {tf.param_count(cfg) / 1e9:.3f}B {cfg.param_dtype} params "
-        f"({cfg.n_layers} layers, d_model {cfg.d_model}, compute "
+    n_params = tf.param_count(cfg) / 1e9
+    cut = (f"{n_params:.3f}B at the {cfg.n_layers} of {full.n_layers} "
+           f"layers served, of {tf.param_count(full) / 1e9:.3f}B"
+           if depth else f"{n_params:.3f}B")
+    moe = (f", {cfg.n_experts} experts top-{cfg.experts_per_token}, group "
+           f"{cfg.moe_group_size}, capacity factor {cfg.capacity_factor}, "
+           f"window {cfg.sliding_window}, softcap {cfg.logit_softcap}"
+           if cfg.n_experts else "")
+    log(f"{arch}: {cut} {cfg.param_dtype} params ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}{moe}, compute "
         f"{cfg.compute_dtype}) made on the card in "
-        f"{time.perf_counter() - t0:.1f}s; card: {card_line()}")
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB (peak while made "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f}); card: "
+        f"{card_line()}")
+    torch.cuda.reset_peak_memory_stats()
     server = BatchedServer(cfg, params=params, batch=SERVE["batch"],
                            device=str(dev))
     waves = -(-SERVE["requests"] // SERVE["batch"])
@@ -1615,19 +1735,21 @@ def serve_model(arch: str, kernel: str, ref_depth: int,
     # prefill S
     S = SERVE["prompt_len"]
     fcfg = cfg.replace(compute_dtype="float32")
-    lg, cache = tf.forward_prefill(params, {"tokens": toks[:, :S - 4]}, fcfg)
-    cache = tf.grow_cache(cache, fcfg, S)
-    for t in range(S - 4, S):
-        lg, cache = tf.decode_step(params, cache, {"tokens": toks[:, t:t + 1]},
-                                   fcfg)
-    lg_full, _ = tf.forward_prefill(params, {"tokens": toks}, fcfg)
-    err, agree = _gap(lg, lg_full)
-    log(f"  {arch}: fp32 prefill {S - 4} + 4 decode steps vs prefill {S}: "
-        f"max_abs_err={err:.3g} argmax_agree={agree:.3f} tol={TF_TOL}")
-    if not torch.allclose(lg.float(), lg_full.float(), rtol=TF_TOL[0],
-                          atol=TF_TOL[1]):
-        raise AssertionError(f"{arch}: decode disagrees with prefill")
-    del cache
+    teacher_forcing(arch, params, fcfg, toks, gated=not cfg.n_experts)
+    if cfg.n_experts:
+        # one prompt of two full groups, then 4 decode steps: the longer
+        # prefill's first two groups hold the same tokens (and drop the
+        # same slots), and its last holds the 4 decoded tokens alone
+        one = np.random.default_rng(2).integers(
+            2, cfg.vocab_size, (1, 2 * cfg.moe_group_size + 4))
+        teacher_forcing(arch, params, fcfg, torch.tensor(one, device=dev))
+    if cfg.sliding_window:
+        # past the window: the cache is a ring from the prefill on
+        W = cfg.sliding_window
+        long = np.random.default_rng(1).integers(2, cfg.vocab_size,
+                                                 (1, W + 104))
+        teacher_forcing(arch, params, fcfg,
+                        torch.tensor(long, device=dev))
     if profile:
         out = {}
 
@@ -1639,6 +1761,9 @@ def serve_model(arch: str, kernel: str, ref_depth: int,
         profile_device(f"{arch} decode step at {S}",
                        lambda: tf.decode_step(params, cache,
                                               {"tokens": toks[:, -1:]}, cfg))
+    log(f"  {arch}: peak device memory over the model's runs and checks "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB (the "
+        f"parameters included)")
     del server, params, rparams
     torch.cuda.empty_cache()
     return launches
@@ -1736,6 +1861,14 @@ def main() -> int:
     launches["mamba_scan"] = serve_model(
         "falcon-mamba-7b", "mamba_scan", ref_depth=8, dev=gen.device,
         profile=args.profile)
+    # the moe models do not fit one card at full depth (mixtral: 187 GB in
+    # its fp32 params, grok-1: 628 GB in bf16): full width, fewer layers
+    launches["flash_attention"] += serve_model(
+        "mixtral-8x7b", "flash_attention", ref_depth=8, dev=gen.device,
+        profile=args.profile, depth=8)
+    launches["flash_attention"] += serve_model(
+        "grok-1-314b", "flash_attention", ref_depth=2, dev=gen.device,
+        profile=args.profile, depth=4)
 
     # ---- phase 5: result lines
     sources = {"hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
@@ -1763,7 +1896,14 @@ def main() -> int:
                                  "from torch.profiler; other_tables: "
                                  "customer, supplier and date")
         if name == "flash_attention":
-            row.update({k: v for k, v in m.items() if k.startswith("fp32_")})
+            row.update({k: v for k, v in m.items() if k.startswith("fp32_")
+                        or k.endswith("_prefill")})
+            row["prefill_note"] = ("mixtral_prefill, grok_prefill: the same "
+                                   "bf16 kernel at B 4, S 2048, 8 kv heads "
+                                   "of 128, G 4 with window 4096 and G 6 "
+                                   "with softcap 30; device_ms from CUDA "
+                                   "events around 20 launches back to "
+                                   "back")
             row["fp32_note"] = ("the fp32 FMA kernel "
                                 "(src/repro_torch/csrc/flash_attention.cu) "
                                 "at the same shape; its bound is fp32 FMAs "

@@ -268,6 +268,8 @@ def mlp_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
 # ---------------------------------------------------------------------------
 def normal_init(gen: torch.Generator, shape, scale: float,
                 dtype: torch.dtype) -> torch.Tensor:
-    """N(0, 1) * scale drawn in fp32 on the generator's device, then cast."""
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=gen.device) * scale).to(dtype)
+    """N(0, 1) * scale drawn in fp32 on the generator's device, then cast.
+    Scaled in place: one fp32 copy of the leaf at a time (a stacked expert
+    weight of grok-1 at 4 layers is 25.8 GB in fp32)."""
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device).mul_(scale).to(dtype)

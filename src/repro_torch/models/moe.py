@@ -1,0 +1,124 @@
+"""Top-k Mixture-of-Experts FFN, in torch: the reference's GShard-style
+grouped dispatch with a static capacity (``repro/models/moe.py``).
+
+Tokens are flattened and cut into groups of ``Gs = min(moe_group_size, T)``
+(the last one padded, with a ``valid`` mask).  Per group the fp32 router
+picks each token's top-k experts; a token's slot at expert e gets the rank
+``cumsum`` of e's mask over the group, slot 2 ranking after slot 1, and a
+rank at or over the capacity C drops that slot.  Dispatch and combine are
+dense one-hot einsums, as in the reference; the expert products are batched
+matmuls.  None of this is a kernel of the reference: it computes the block
+outside any Pallas call, so the port keeps it in plain torch.
+
+``moe_block`` returns the Switch/GShard load-balancing loss beside the
+output.  The backbone does not add it up yet: serving has no use for it,
+and training (ROADMAP queue A item 7) will.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .layers import Rules, dt
+
+
+def _capacity(group_size: int, k: int, n_experts: int, factor: float) -> int:
+    c = int(round(group_size * k * factor / n_experts))
+    return max(8, -(-c // 8) * 8)          # >= 8, a multiple of 8
+
+
+class Routing(NamedTuple):
+    """The router's decisions for tokens in groups ``[Gn, Gs]``."""
+    probs: torch.Tensor     # [Gn, Gs, E] fp32 softmax of the router logits
+    topi: torch.Tensor      # [Gn, Gs, k] experts, best first
+    keep: torch.Tensor      # [Gn, Gs, k] bool: the slot got a capacity slot
+    load: torch.Tensor      # [Gn, E] slots asked of each expert (valid only)
+    combine: torch.Tensor   # [Gn, Gs, E, C] fp32 gate of each kept slot
+
+
+def route(xg: torch.Tensor, valid: torch.Tensor, router: torch.Tensor,
+          k: int, capacity: int) -> Routing:
+    """xg: [Gn, Gs, d]; valid: [Gn, Gs] bool; router: [d, E]."""
+    Gn, Gs, _ = xg.shape
+    E, C = router.shape[-1], capacity
+    logits = xg.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    # a stable descending sort breaks ties toward the lower expert, as
+    # jax.lax.top_k does (padded tokens, x = 0, tie every expert)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+
+    combine = torch.zeros((Gn, Gs, E * C), dtype=torch.float32,
+                          device=xg.device)
+    prev = torch.zeros((Gn, 1, E), dtype=torch.int64, device=xg.device)
+    keep = []
+    for slot in range(k):
+        e = topi[..., slot]
+        mask = F.one_hot(e, E) * valid[..., None]          # [Gn, Gs, E]
+        pos = torch.cumsum(mask, dim=1) - 1 + prev          # rank in expert
+        prev = prev + mask.sum(dim=1, keepdim=True)
+        rank = pos.gather(-1, e[..., None])[..., 0]         # [Gn, Gs]
+        kept = valid & (rank < C)
+        # a dropped slot or a padded token adds nothing (jax.nn.one_hot of
+        # an index outside [0, C) is a zero row); mask, do not clamp
+        idx = torch.where(kept, e * C + rank, torch.zeros_like(rank))
+        val = torch.where(kept, topv[..., slot], torch.zeros_like(topv[
+            ..., slot]))
+        combine.scatter_add_(-1, idx[..., None], val[..., None])
+        keep.append(kept)
+    return Routing(probs, topi, torch.stack(keep, -1), prev[:, 0],
+                   combine.view(Gn, Gs, E, C))
+
+
+def _expert_mm(a: torch.Tensor, w: torch.Tensor, cdt: torch.dtype
+               ) -> torch.Tensor:
+    """a: [Gn, E, C, i] times each expert's w [E, i, o] in ``cdt``.  The
+    cast copy of w lives only for this product (grok's three fp32 expert
+    weights would take 19.3 GB a layer together)."""
+    return torch.einsum("geci,eio->geco", a, w.to(cdt))
+
+
+def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
+              rules: Rules) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (out [B, S, d], aux_loss scalar)."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    cdt = dt(cfg.compute_dtype)
+
+    T = B * S
+    Gs = min(cfg.moe_group_size, T)
+    pad = (-T) % Gs
+    xt = x.reshape(T, d)
+    valid = torch.ones((T,), dtype=torch.bool, device=x.device)
+    if pad:
+        xt = F.pad(xt, (0, 0, 0, pad))
+        valid = F.pad(valid, (0, pad))
+    Gn = xt.shape[0] // Gs
+    xg = xt.reshape(Gn, Gs, d)
+    vg = valid.reshape(Gn, Gs)
+
+    r = route(xg, vg, p["router"], k, _capacity(Gs, k, E, cfg.capacity_factor))
+    dispatch = (r.combine > 0).to(cdt)                   # [Gn, Gs, E, C]
+    combine = r.combine.to(cdt)
+
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg.to(cdt))   # [Gn,E,C,d]
+    if cfg.mlp_kind == "swiglu":
+        h = F.silu(_expert_mm(xe, p["wg"], cdt)) * _expert_mm(xe, p["wu"],
+                                                              cdt)
+    else:  # gelu; jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(_expert_mm(xe, p["wu"], cdt), approximate="tanh")
+    ye = _expert_mm(h, p["wd"], cdt)
+    del h
+    out = torch.einsum("gsec,gecd->gsd", combine, ye)    # [Gn, Gs, d]
+    out = out.reshape(Gn * Gs, d)[:T].reshape(B, S, d).to(x.dtype)
+
+    # load-balance aux loss (mean over groups): E * sum_e f_e * P_e; padded
+    # tokens count in P_e, as in the reference
+    me = r.probs.mean(dim=1)                             # [Gn, E]
+    top1 = F.one_hot(r.topi[..., 0], E).float()
+    fe = (top1 * vg[..., None]).mean(dim=1)              # [Gn, E]
+    aux = (E * (fe * me).sum(-1)).mean()
+    return out, aux

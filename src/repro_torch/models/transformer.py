@@ -1,7 +1,8 @@
 """The reference's unified model, in torch, for the families the port runs:
-dense (attention + MLP) and ssm (Mamba-1).
+dense (attention + MLP), moe (attention + the MoE FFN of ``moe.py``) and
+ssm (Mamba-1).
 
-Layers are grouped into structural periods (dense and ssm: period 1) and
+Layers are grouped into structural periods (dense, moe and ssm: period 1) and
 their parameters stacked along a leading layer dim, as in the reference;
 where the reference runs ``lax.scan`` over periods, the port runs a Python
 loop over the stacked parameters' layer index.
@@ -14,7 +15,14 @@ Entry points:
   grow_cache(cache, cfg, max_len)          -> cache with free decode slots
 
 A cache is a dict of stacked tensors plus ``pos_idx``, the next decode
-position, kept as a host int (decode slices the cache with it).
+position, kept as a host int (decode slices the cache with it).  With a
+sliding window W the attention cache is a ring: position p sits at slot
+p mod W, after a prefill too (the reference's prefill cache breaks that
+when the prompt is longer than W and not a multiple of it).
+
+The backbone returns ``(h, new_cache)``.  ``moe_block`` also returns its
+load-balancing loss; serving drops it, and the backbone will sum it when
+training is ported (ROADMAP queue A item 7).
 """
 from __future__ import annotations
 
@@ -26,13 +34,16 @@ import torch
 from .layers import (NO_RULES, Rules, attn_block, dt, mlp_block, normal_init,
                      rms_norm)
 from .mamba import mamba_block
+from .moe import moe_block
 
 Params = Dict[str, Any]
 
 #: families the port cannot run yet, and what each still needs
 _UNSUPPORTED = {
-    "moe": "models/moe.py (the MoE FFN)",
-    "hybrid": "models/moe.py and the hybrid attention/Mamba interleave",
+    "hybrid": "a card path over 4 cards with model sharding (one "
+              "full-width period, 4 MoE layers of 16 experts, is 77 GB in "
+              "bf16) and its attention/Mamba/MoE interleave held against "
+              "the reference",
     "vlm": "cross-attention over vision embeddings",
     "audio": "the audio front end and encoder-only serving",
 }
@@ -40,10 +51,10 @@ _UNSUPPORTED = {
 
 def check_supported(cfg) -> None:
     """Raise for a family whose modules are not ported yet."""
-    if cfg.family in _UNSUPPORTED or cfg.n_experts:
-        need = _UNSUPPORTED.get(cfg.family, _UNSUPPORTED["moe"])
+    if cfg.family in _UNSUPPORTED:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} needs {need}, which the "
+            f"{cfg.name}: family {cfg.family!r} needs "
+            f"{_UNSUPPORTED[cfg.family]}, which the "
             f"port does not have yet (ROADMAP.md, queue A: 'LM families "
             f"still to port')")
 
@@ -273,8 +284,12 @@ def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, cache, cache_pos,
             causal=cfg.causal, window=cfg.sliding_window,
             kv_cache=kv_cache, cache_pos=cache_pos)
         if mode == "prefill" and cfg.sliding_window:
-            W = cache_len(cfg, k_.shape[1])
+            S, W = k_.shape[1], cache_len(cfg, k_.shape[1])
             k_, v_ = k_[:, -W:], v_[:, -W:]
+            if S > W and S % W:
+                # the last W positions, S-W+j at slot j: roll them so that
+                # position p sits at slot p mod W, where decode reads it
+                k_, v_ = (torch.roll(t, S % W, dims=1) for t in (k_, v_))
         new_cache["k"], new_cache["v"] = k_, v_
         h = h + out
     else:
@@ -286,7 +301,11 @@ def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, cache, cache_pos,
         h = h + out
     if cfg.d_ff > 0:
         hin2 = rms_norm(h, sub["ln2"], cfg.norm_eps)
-        h = h + mlp_block(hin2, sub["mlp"], cfg, rules)
+        if cfg.ffn_kind(pos) == "moe":
+            out, _aux = moe_block(hin2, sub["moe"], cfg, rules)
+        else:
+            out = mlp_block(hin2, sub["mlp"], cfg, rules)
+        h = h + out
     return h, new_cache
 
 

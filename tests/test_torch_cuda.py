@@ -756,3 +756,69 @@ def test_lm_kernels_refuse_what_they_do_not_take(dev):
     from repro_torch.kernels.mamba_scan.ops import mamba_scan_cuda
     with pytest.raises(ValueError, match="lanes"):
         mamba_scan_cuda(z, z, s, s, A, h0, lanes=3)
+
+
+# The MoE FFN on the card: plain torch (the reference computes it outside
+# any kernel), held against the same block on the CPU in fp32 within rtol
+# 1e-4 / atol 1e-4 (matmul sums in other orders), with the router's
+# decisions equal.
+@pytest.mark.parametrize("kw", [{}, dict(capacity_factor=0.25),
+                                dict(mlp_kind="gelu", experts_per_token=1)])
+def test_moe_block_on_the_card_matches_torch_cpu(dev, kw, monkeypatch):
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.layers import NO_RULES
+    cfg = configs.get_config("mixtral-8x7b", smoke=True).replace(
+        compute_dtype="float32", **kw)
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    rng = np.random.default_rng(8)
+    w = {"router": rng.normal(0, d ** -0.5, (d, E)),
+         "wg": rng.normal(0, d ** -0.5, (E, d, f)),
+         "wu": rng.normal(0, d ** -0.5, (E, d, f)),
+         "wd": rng.normal(0, f ** -0.5, (E, f, d))}
+    x = rng.normal(size=(2, 37, d))
+    routes = []
+    real = moe.route
+
+    def spy(*a, **k):
+        routes.append(real(*a, **k))
+        return routes[-1]
+
+    monkeypatch.setattr(moe, "route", spy)
+    runs = []
+    for device in ("cpu", dev):
+        p = {k: torch.tensor(v, dtype=torch.float32, device=device)
+             for k, v in w.items()}
+        xt = torch.tensor(x, dtype=torch.float32, device=device)
+        runs.append(moe.moe_block(xt, p, cfg, NO_RULES))
+    (out_c, aux_c), (out_g, aux_g) = runs
+    assert out_g.device.type == dev.type and out_g.shape == out_c.shape
+    assert torch.equal(routes[0].topi, routes[1].topi.cpu())
+    assert torch.equal(routes[0].keep, routes[1].keep.cpu())
+    torch.testing.assert_close(out_g.cpu(), out_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux_g.cpu(), aux_c, rtol=1e-4, atol=1e-4)
+
+
+def test_mixtral_smoke_prefill_launches_flash_once_a_layer(dev):
+    """A moe model's prefill on the card runs the flash kernel once a layer
+    (sliding window, GQA) and agrees with the CPU's plain route in fp32."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    cfg = configs.get_config("mixtral-8x7b", smoke=True).replace(
+        compute_dtype="float32")
+    p = tf.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 40)))
+    want, want_cache = tf.forward_prefill(p, {"tokens": toks}, cfg)
+    pg = _to_device(p, dev)
+    reset_launches()
+    got, cache = tf.forward_prefill(pg, {"tokens": toks.to(dev)}, cfg)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache["pos0"]["k"].cpu(),
+                               want_cache["pos0"]["k"], rtol=1e-4, atol=1e-4)
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
