@@ -16,8 +16,10 @@ Phases (any failure raises and the script exits non-zero):
    ETL kernels; stablelm-3b and falcon-mamba-7b prefill for flash attention
    and the selective scan; flash on both of its routes, bf16 on the tensor
    cores and fp32 in FMAs, and in bf16 at mixtral-8x7b's and grok-1's
-   prefill shapes too, with their device times from CUDA events around 20
-   launches back to back; the scan on bf16 and fp32
+   prefill shapes, llama-3.2-vision-11b's cross-attention (2048 queries
+   against 1601 vision tokens, non-causal) and hubert-xlarge's encoder
+   (non-causal, hd 80) too, with their device times from CUDA events
+   around 20 launches back to back; the scan on bf16 and fp32
    delta/x, with its lane splits timed) plus small cases for the options
    those paths do not use, twice (bit-identical), with its median time
    (CUDA events), its
@@ -78,6 +80,17 @@ Phases (any failure raises and the script exits non-zero):
    prefill + 4 decode steps must agree with a longer prefill, for mixtral
    also at one prompt past its 4096-token window (4196 + 4 against 4200),
    with the largest expert load of each MoE prefill against its capacity.
+   Then llama-3.2-vision-11b and hubert-xlarge whole (40 and 48 layers),
+   fp32 params.  The vlm's cross-attention gates are set nonzero from
+   GATE_SEED (zero, they would hide the branch from every check); it
+   serves the same traffic through ``generate(..., vision=...)`` with
+   random patch embeddings [4, 1601, 4096] a wave, twice (tokens
+   identical, 40 + 8 flash launches a prefill), then the same route check
+   and fp32 teacher forcing with vision (decode over the cached vision
+   K/V against flash's cross-attention).  hubert encodes 8 clips of 2048
+   stub frames in waves of 4 through ``forward_prefill``, twice (logits
+   bit-identical, 48 flash launches a wave); its route check compares the
+   hidden state at every position.
 5. The ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -713,6 +726,16 @@ def phase_flash_attention(gen) -> dict:
     main["grok_prefill"] = _flash_case(
         "grok-1-314b prefill, bf16 tensor cores", gen, 4, 2048, 2048, 8, 6,
         128, True, 0, 30.0, bf16, library=False, device=True)
+    # llama-3.2-vision-11b's cross-attention (non-causal, 2048 queries
+    # against 1601 vision tokens = 25 x 64 + 1: the last kv tile holds one
+    # key) and hubert-xlarge's encoder (non-causal, 16 heads of 80)
+    main["vlm_cross_prefill"] = _flash_case(
+        "llama-3.2-vision-11b cross-attention, bf16 tensor cores", gen, 4,
+        2048, 1601, 8, 4, 128, False, 0, 0.0, bf16, library=True,
+        device=True)
+    main["hubert_prefill"] = _flash_case(
+        "hubert-xlarge encoder, bf16 tensor cores", gen, 4, 2048, 2048, 16,
+        1, 80, False, 0, 0.0, bf16, library=True, device=True)
     # the options that path does not use: GQA, window, softcap, ragged
     # lengths, Sq != Skv, rows with no allowed key, other head dims
     for args in (("gqa+window+softcap", 2, 300, 300, 2, 4, 128, True, 100,
@@ -1557,9 +1580,11 @@ def _gap(got: torch.Tensor, want: torch.Tensor):
 
 
 def teacher_forcing(arch: str, params, fcfg, toks: torch.Tensor,
-                    gated: bool = True) -> None:
+                    gated: bool = True, extra: dict = None) -> None:
     """In fp32: prefill all but the last 4 tokens, then 4 decode steps, must
-    give the logits of a prefill of all of them within TF_TOL.
+    give the logits of a prefill of all of them within TF_TOL.  ``extra``:
+    more batch entries for both prefills (a vlm's vision, whose K/V decode
+    reads from the cache).
 
     With MoE layers that is an identity only where no slot is dropped
     differently: a prefill drops a group's slots past the capacity C, decode
@@ -1569,14 +1594,17 @@ def teacher_forcing(arch: str, params, fcfg, toks: torch.Tensor,
     without holding it to TF_TOL."""
     from repro_torch.models import transformer as tf
     S = toks.shape[1]
-    lg, cache = tf.forward_prefill(params, {"tokens": toks[:, :S - 4]}, fcfg)
+    extra = extra or {}
+    lg, cache = tf.forward_prefill(params, dict(extra,
+                                                tokens=toks[:, :S - 4]), fcfg)
     cache = tf.grow_cache(cache, fcfg, S)
     for t in range(S - 4, S):
         lg, cache = tf.decode_step(params, cache, {"tokens": toks[:, t:t + 1]},
                                    fcfg)
     del cache
     with expert_loads() as loads:
-        lg_full, _ = tf.forward_prefill(params, {"tokens": toks}, fcfg)
+        lg_full, _ = tf.forward_prefill(params, dict(extra, tokens=toks),
+                                        fcfg)
     err, agree = _gap(lg, lg_full)
     window = (f" (window {fcfg.sliding_window}, {S - 4} mod it = "
               f"{(S - 4) % fcfg.sliding_window})"
@@ -1627,17 +1655,54 @@ class expert_loads:
                 f"against C={C} ({drops})")
 
 
-@torch.no_grad()
-def serve_model(arch: str, kernel: str, ref_depth: int,
-                dev: torch.device, profile: bool = False,
-                depth: int = 0) -> int:
-    """Serve ``SERVE`` through ``BatchedServer`` twice at the full width of
-    ``arch``, cut to its first ``depth`` layers where given (a model that
-    does not fit the card); returns the launches of ``kernel`` in those two
-    runs."""
+def route_check(arch: str, cfg, params, batch: dict,
+                hidden: bool = False) -> None:
+    """The kernel route's prefill against the plain route's, with the fp32
+    plain route as the yardstick: the last position's logits, or with
+    ``hidden`` the backbone's output at every position (an encoder, whose
+    earlier positions see later frames: where a masking fault shows).  The
+    fp32 kernel route must be within F32_LOGITS_ATOL of it, and the
+    compute-dtype kernel route no further than twice the compute-dtype
+    plain route plus BF16_MARGIN."""
+    from repro_torch.models import transformer as tf
+    plain = dict(attn_impl="reference", ssm_impl="reference")
+
+    def run(c):
+        if not hidden:
+            return tf.forward_prefill(params, batch, c)[0]
+        x = tf._embed(params, batch, c, tf.NO_RULES)
+        pos = torch.arange(x.shape[1], device=x.device)
+        return tf.backbone(params, x, c, tf.NO_RULES, "prefill", pos,
+                           pos)[0]
+    truth = run(cfg.replace(compute_dtype="float32", **plain))
+    scale = float(truth.abs().max())
+    e32, a32 = _gap(run(cfg.replace(compute_dtype="float32")), truth)
+    ek, ak = _gap(run(cfg), truth)
+    ep, ap_ = _gap(run(cfg.replace(**plain)), truth)
+    what = (f"hidden state at all {tuple(truth.shape)} positions"
+            if hidden else "prefill logits")
+    agree = ((lambda a: "") if hidden
+             else (lambda a: f" argmax_agree={a:.3f}"))
+    log(f"  {arch}: {what} at depth {cfg.n_layers} (|max| {scale:.3g}) "
+        f"against the fp32 plain route: fp32 kernel route "
+        f"max_abs_err={e32:.3g}{agree(a32)}; {cfg.compute_dtype} kernel "
+        f"route {ek:.4g}{agree(ak)}; {cfg.compute_dtype} plain route "
+        f"{ep:.4g}{agree(ap_)}")
+    if e32 > F32_LOGITS_ATOL:
+        raise AssertionError(f"{arch}: fp32 kernel route {e32:.3g} from the "
+                             f"plain route, beyond {F32_LOGITS_ATOL}")
+    if ek > 2.0 * ep + BF16_MARGIN:
+        raise AssertionError(f"{arch}: {cfg.compute_dtype} kernel route "
+                             f"{ek:.4g} from the fp32 model, beyond twice the "
+                             f"plain route's {ep:.4g} + {BF16_MARGIN}")
+
+
+def make_model(arch: str, dev: torch.device, depth: int = 0):
+    """(cfg, params): ``arch`` at its full width, cut to its first ``depth``
+    layers where given, random weights from seed 0 made on the card; logs
+    the parameter count, the memory and the card, and resets the peak
+    memory counter."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launches
-    from repro_torch.launch.serve import BatchedServer, make_requests
     from repro_torch.models import transformer as tf
     full = get_config(arch)
     cfg = full.replace(n_layers=depth) if depth else full
@@ -1653,14 +1718,31 @@ def serve_model(arch: str, kernel: str, ref_depth: int,
            f"{cfg.moe_group_size}, capacity factor {cfg.capacity_factor}, "
            f"window {cfg.sliding_window}, softcap {cfg.logit_softcap}"
            if cfg.n_experts else "")
+    heads = (f", {cfg.n_heads} heads over {cfg.n_kv_heads} kv heads of "
+             f"{cfg.hd}" + (", non-causal" if not cfg.causal else ""))
     log(f"{arch}: {cut} {cfg.param_dtype} params ({cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}{moe}, compute "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}{heads}{moe}, compute "
         f"{cfg.compute_dtype}) made on the card in "
         f"{time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB (peak while made "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f}); card: "
         f"{card_line()}")
     torch.cuda.reset_peak_memory_stats()
+    return cfg, params
+
+
+@torch.no_grad()
+def serve_model(arch: str, kernel: str, ref_depth: int,
+                dev: torch.device, profile: bool = False,
+                depth: int = 0) -> int:
+    """Serve ``SERVE`` through ``BatchedServer`` twice at the full width of
+    ``arch``, cut to its first ``depth`` layers where given (a model that
+    does not fit the card); returns the launches of ``kernel`` in those two
+    runs."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import BatchedServer, make_requests
+    from repro_torch.models import transformer as tf
+    cfg, params = make_model(arch, dev, depth)
     server = BatchedServer(cfg, params=params, batch=SERVE["batch"],
                            device=str(dev))
     waves = -(-SERVE["requests"] // SERVE["batch"])
@@ -1707,29 +1789,8 @@ def serve_model(arch: str, kernel: str, ref_depth: int,
         cfg, SERVE["batch"], SERVE["prompt_len"], 1, seed=0)])
     toks = torch.tensor(prompts, dtype=torch.long, device=dev)
     ref_depth = min(ref_depth, cfg.n_layers)
-    rcfg = cfg.replace(n_layers=ref_depth)
-    rparams = _top_layers(params, ref_depth)
-    plain = dict(attn_impl="reference", ssm_impl="reference")
-
-    def last_logits(c):
-        return tf.forward_prefill(rparams, {"tokens": toks}, c)[0]
-    truth = last_logits(rcfg.replace(compute_dtype="float32", **plain))
-    scale = float(truth.abs().max())
-    e32, a32 = _gap(last_logits(rcfg.replace(compute_dtype="float32")), truth)
-    ek, ak = _gap(last_logits(rcfg), truth)
-    ep, ap_ = _gap(last_logits(rcfg.replace(**plain)), truth)
-    log(f"  {arch}: prefill logits at depth {ref_depth} of {cfg.n_layers} "
-        f"(|logits| max {scale:.3g}) against the fp32 plain route: fp32 "
-        f"kernel route max_abs_err={e32:.3g} argmax_agree={a32:.3f}; "
-        f"{cfg.compute_dtype} kernel route {ek:.4g} ({ak:.3f}); "
-        f"{cfg.compute_dtype} plain route {ep:.4g} ({ap_:.3f})")
-    if e32 > F32_LOGITS_ATOL:
-        raise AssertionError(f"{arch}: fp32 kernel route {e32:.3g} from the "
-                             f"plain route, beyond {F32_LOGITS_ATOL}")
-    if ek > 2.0 * ep + BF16_MARGIN:
-        raise AssertionError(f"{arch}: {cfg.compute_dtype} kernel route "
-                             f"{ek:.4g} from the fp32 model, beyond twice the "
-                             f"plain route's {ep:.4g} + {BF16_MARGIN}")
+    route_check(arch, cfg.replace(n_layers=ref_depth),
+                _top_layers(params, ref_depth), {"tokens": toks})
 
     # teacher forcing in fp32: prefill S-4 tokens, then 4 decode steps ==
     # prefill S
@@ -1764,7 +1825,201 @@ def serve_model(arch: str, kernel: str, ref_depth: int,
     log(f"  {arch}: peak device memory over the model's runs and checks "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB (the "
         f"parameters included)")
-    del server, params, rparams
+    del server, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the cross-attention gates are initialised to zero, and tanh(0) * out
+#: would hide the whole branch from every check: each is set to a value in
+#: [0.5, 1) drawn from this numpy seed before any check
+GATE_SEED = 0
+
+
+def set_gates(params, seed: int = GATE_SEED) -> list:
+    """Fill every ``xattn.gate`` from numpy ``seed``; returns the values."""
+    rng = np.random.default_rng(seed)
+    values = []
+    for sub in params["blocks"].values():
+        if "xattn" in sub:
+            g = sub["xattn"]["gate"]
+            v = rng.uniform(0.5, 1.0, tuple(g.shape))
+            g.copy_(torch.tensor(v, dtype=g.dtype))
+            values += v.ravel().tolist()
+    return values
+
+
+class prefill_seconds:
+    """Within the block, the host seconds of each ``forward_prefill`` that
+    ``generate`` calls, synchronised at its end (time to the first
+    tokens, as ``BatchedServer.stats`` counts it)."""
+
+    def __enter__(self):
+        from repro_torch.train import serve_step
+        self.mod, self.real, self.seconds = (serve_step,
+                                             serve_step.forward_prefill, [])
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            out = self.real(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t)
+            return out
+        serve_step.forward_prefill = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.forward_prefill = self.real
+
+
+@torch.no_grad()
+def serve_vlm(dev: torch.device, profile: bool = False) -> int:
+    """llama-3.2-vision-11b at full depth and width: ``SERVE``'s requests
+    in waves, each wave through ``generate(..., vision=...)`` with random
+    patch embeddings [batch, 1601, d_model] from the card's generator,
+    twice.  Every prefill launches flash once a self-attention layer and
+    once a cross-attention layer; decode reads the cached vision K/V with
+    plain attention.  Returns flash's launches in those two runs."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.serve_step import generate
+    arch, kernel = "llama-3.2-vision-11b", "flash_attention"
+    cfg, params = make_model(arch, dev)
+    gates = set_gates(params)
+    n_cross = sum(cfg.has_cross_attn(i) for i in range(cfg.n_layers))
+    log(f"  {arch}: {n_cross} cross-attention layers over "
+        f"{cfg.n_vision_tokens} vision tokens; gates set from numpy seed "
+        f"{GATE_SEED}: {', '.join(f'{g:.4f}' for g in gates)}")
+    B, S, new = SERVE["batch"], SERVE["prompt_len"], SERVE["max_new"]
+    waves = -(-SERVE["requests"] // B)
+    prompts = torch.tensor(np.stack([r.prompt for r in make_requests(
+        cfg, SERVE["requests"], S, new, seed=0)]), dtype=torch.long,
+        device=dev)
+    vgen = torch.Generator(device=dev)
+    vgen.manual_seed(0)
+    vision = [torch.randn((B, cfg.n_vision_tokens, cfg.d_model),
+                          generator=vgen, device=dev) for _ in range(waves)]
+    outputs = []
+    torch.cuda.synchronize()
+    reset_launches()
+    for attempt in (1, 2):
+        before = launch_counts()[kernel]
+        t = time.perf_counter()
+        with prefill_seconds() as pre:
+            toks = torch.cat([generate(params, cfg, prompts[w * B:(w + 1) * B],
+                                       new, vision=vision[w]).cpu()
+                              for w in range(waves)])
+        wall = time.perf_counter() - t
+        launched = launch_counts()[kernel] - before
+        if launched != (cfg.n_layers + n_cross) * waves:
+            raise AssertionError(f"{arch}#{attempt}: {kernel} launched "
+                                 f"{launched} times, expected "
+                                 f"({cfg.n_layers} + {n_cross}) x {waves} "
+                                 f"waves")
+        if tuple(toks.shape) != (SERVE["requests"], new) or int(
+                toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{arch}#{attempt}: bad output tokens")
+        steps = waves * (new - 1)
+        prefill_s = sum(pre.seconds)
+        log(f"  {arch}#{attempt}: {SERVE['requests']} requests in {waves} "
+            f"waves through generate with vision, {toks.numel()} tokens in "
+            f"{wall:.3f}s ({toks.numel() / wall:.1f} tok/s); prefill "
+            f"{prefill_s / waves * 1e3:.1f} ms a wave of {B}x{S} "
+            f"(+{cfg.n_vision_tokens} vision tokens); decode "
+            f"{(wall - prefill_s) / steps * 1e3:.2f} ms a step ({steps} "
+            f"steps); {kernel} launches={launched}")
+        outputs.append(toks)
+    launches = launch_counts()[kernel]
+    if not torch.equal(outputs[0], outputs[1]):
+        raise AssertionError(f"{arch}: the second run gave other tokens")
+    log(f"  {arch}: second run token-identical; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    batch = {"tokens": prompts[:B], "vision": vision[0]}
+    route_check(arch, cfg, params, batch)
+    # decode over the cached vision K/V (plain attention) against the
+    # longer prefill's cross-attention (flash)
+    teacher_forcing(arch, params, cfg.replace(compute_dtype="float32"),
+                    prompts[:B], extra={"vision": vision[0]})
+    if profile:
+        out = {}
+
+        def prefill():
+            out["cache"] = tf.forward_prefill(params, batch, cfg)[1]
+        profile_device(f"{arch} prefill {B}x{S} + vision", prefill)
+        cache = tf.grow_cache(out.pop("cache"), cfg, S + 1)
+        profile_device(f"{arch} decode step at {S}",
+                       lambda: tf.decode_step(params, cache,
+                                              {"tokens": prompts[:B, -1:]},
+                                              cfg))
+    log(f"  {arch}: peak device memory over the model's runs and checks "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB (the "
+        f"parameters included)")
+    del params, vision
+    torch.cuda.empty_cache()
+    return launches
+
+
+@torch.no_grad()
+def serve_encoder(dev: torch.device, profile: bool = False) -> int:
+    """hubert-xlarge at full depth and width: stub frame embeddings
+    [requests, prompt_len, d_model] from the card's generator, encoded by
+    ``forward_prefill`` in waves of ``SERVE["batch"]``, twice (an encoder
+    has no decode step).  Every wave launches flash (non-causal) once a
+    layer; the two runs' logits must be bit-identical.  Returns flash's
+    launches in those two runs."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import transformer as tf
+    arch, kernel = "hubert-xlarge", "flash_attention"
+    cfg, params = make_model(arch, dev)
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    waves = -(-SERVE["requests"] // B)
+    fgen = torch.Generator(device=dev)
+    fgen.manual_seed(0)
+    frames = torch.randn((SERVE["requests"], S, cfg.d_model), generator=fgen,
+                         device=dev)
+    outputs = []
+    torch.cuda.synchronize()
+    reset_launches()
+    for attempt in (1, 2):
+        before = launch_counts()[kernel]
+        t = time.perf_counter()
+        logits = []
+        for w in range(waves):
+            lg, _ = tf.forward_prefill(
+                params, {"frames": frames[w * B:(w + 1) * B]}, cfg)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = launch_counts()[kernel] - before
+        if launched != cfg.n_layers * waves:
+            raise AssertionError(f"{arch}#{attempt}: {kernel} launched "
+                                 f"{launched} times, expected "
+                                 f"{cfg.n_layers} layers x {waves} waves")
+        logits = torch.cat(logits)
+        if not bool(torch.isfinite(logits).all()) or tuple(
+                logits.shape) != (SERVE["requests"], 1, cfg.vocab_size):
+            raise AssertionError(f"{arch}#{attempt}: bad logits "
+                                 f"{tuple(logits.shape)}")
+        log(f"  {arch}#{attempt}: {SERVE['requests']} clips of {S} frames "
+            f"in {waves} waves through forward_prefill in {wall:.3f}s "
+            f"({SERVE['requests'] * S / wall:.0f} frames/s); "
+            f"{wall / waves * 1e3:.1f} ms a wave of {B}x{S}; {kernel} "
+            f"launches={launched}")
+        outputs.append(logits)
+    launches = launch_counts()[kernel]
+    if not torch.equal(outputs[0], outputs[1]):
+        raise AssertionError(f"{arch}: the second run gave other logits")
+    log(f"  {arch}: second run's logits bit-identical; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    batch = {"frames": frames[:B]}
+    route_check(arch, cfg, params, batch, hidden=True)
+    if profile:
+        profile_device(f"{arch} prefill {B}x{S}",
+                       lambda: tf.forward_prefill(params, batch, cfg))
+    del params, frames
     torch.cuda.empty_cache()
     return launches
 
@@ -1869,6 +2124,9 @@ def main() -> int:
     launches["flash_attention"] += serve_model(
         "grok-1-314b", "flash_attention", ref_depth=2, dev=gen.device,
         profile=args.profile, depth=4)
+    # the vlm and the encoder fit the card whole: full depth and width
+    launches["flash_attention"] += serve_vlm(gen.device, args.profile)
+    launches["flash_attention"] += serve_encoder(gen.device, args.profile)
 
     # ---- phase 5: result lines
     sources = {"hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
@@ -1901,7 +2159,11 @@ def main() -> int:
             row["prefill_note"] = ("mixtral_prefill, grok_prefill: the same "
                                    "bf16 kernel at B 4, S 2048, 8 kv heads "
                                    "of 128, G 4 with window 4096 and G 6 "
-                                   "with softcap 30; device_ms from CUDA "
+                                   "with softcap 30; vlm_cross_prefill: "
+                                   "B 4, Sq 2048 against Skv 1601, 8 kv "
+                                   "heads of 128, G 4, non-causal; "
+                                   "hubert_prefill: B 4, S 2048, 16 heads "
+                                   "of 80, non-causal; device_ms from CUDA "
                                    "events around 20 launches back to "
                                    "back")
             row["fp32_note"] = ("the fp32 FMA kernel "

@@ -23,8 +23,8 @@ import torch
 
 from ..configs import ARCH_IDS, get_config
 from ..models.layers import NO_RULES, resolve_device
-from ..models.transformer import (decode_step, forward_prefill, grow_cache,
-                                  init_params)
+from ..models.transformer import (check_supported, decode_step,
+                                  forward_prefill, grow_cache, init_params)
 from ..train.serve_step import sample_token
 
 
@@ -40,7 +40,9 @@ class Request:
 
 class BatchedServer:
     """Static-batch server: groups up to ``batch`` same-length requests,
-    prefills once, decodes to the longest max_new.
+    prefills once, decodes to the longest max_new.  Requests carry tokens
+    only, as the reference's do: a vlm is served text-only, its
+    cross-attention layers skipped.
 
     ``stats`` counts prefills and decode steps, and the host seconds spent
     up to each wave's first tokens (``prefill_s``) and after them
@@ -54,6 +56,7 @@ class BatchedServer:
         self.batch = batch
         self.temperature = temperature
         self.device = resolve_device(device)
+        check_supported(cfg, self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         if params is None:

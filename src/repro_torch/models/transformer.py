@@ -1,11 +1,19 @@
-"""The reference's unified model, in torch, for the families the port runs:
-dense (attention + MLP), moe (attention + the MoE FFN of ``moe.py``) and
-ssm (Mamba-1).
+"""The reference's unified model, in torch, for all six families: dense
+(attention + MLP), moe (attention + the MoE FFN of ``moe.py``), ssm
+(Mamba-1), vlm (a gated cross-attention over vision embeddings every
+``cross_attn_period``-th layer), audio (an encoder over frame embeddings)
+and hybrid (jamba's attention/Mamba/MoE interleave; on the CPU only, see
+``check_supported``).
 
-Layers are grouped into structural periods (dense, moe and ssm: period 1) and
-their parameters stacked along a leading layer dim, as in the reference;
-where the reference runs ``lax.scan`` over periods, the port runs a Python
-loop over the stacked parameters' layer index.
+Layers are grouped into structural periods (dense, moe, ssm and audio: 1;
+jamba: 8 with attention at offset 4 and MoE every 2nd layer; llama-vision:
+5 with cross-attention at offset 3) and their parameters stacked along a
+leading layer dim, as in the reference; where the reference runs
+``lax.scan`` over periods, the port runs a Python loop over the stacked
+parameters' layer index.  The vision and audio front ends are stubs, as in
+the reference: ``batch["vision"]`` holds precomputed patch embeddings
+``[B, n_vision_tokens, d]`` and ``batch["frames"]`` frame embeddings
+``[B, T, d]``.
 
 Entry points:
   init_params / param_shapes / param_count
@@ -15,10 +23,13 @@ Entry points:
   grow_cache(cache, cfg, max_len)          -> cache with free decode slots
 
 A cache is a dict of stacked tensors plus ``pos_idx``, the next decode
-position, kept as a host int (decode slices the cache with it).  With a
-sliding window W the attention cache is a ring: position p sits at slot
-p mod W, after a prefill too (the reference's prefill cache breaks that
-when the prompt is longer than W and not a multiple of it).
+position, kept as a host int (decode slices the cache with it).  A period
+may mix kinds: ``k``/``v`` at attention layers, ``conv``/``h`` at Mamba
+layers, and ``xk``/``xv`` (the vision K/V, written by the prefill and only
+read by decode) at cross-attention layers.  With a sliding window W the
+attention cache is a ring: position p sits at slot p mod W, after a
+prefill too (the reference's prefill cache breaks that when the prompt is
+longer than W and not a multiple of it).
 
 The backbone returns ``(h, new_cache)``.  ``moe_block`` also returns its
 load-balancing loss; serving drops it, and the backbone will sum it when
@@ -32,31 +43,28 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from .layers import (NO_RULES, Rules, attn_block, dt, mlp_block, normal_init,
-                     rms_norm)
+                     rms_norm, sdpa)
 from .mamba import mamba_block
 from .moe import moe_block
 
 Params = Dict[str, Any]
 
-#: families the port cannot run yet, and what each still needs
-_UNSUPPORTED = {
-    "hybrid": "a card path over 4 cards with model sharding (one "
-              "full-width period, 4 MoE layers of 16 experts, is 77 GB in "
-              "bf16) and its attention/Mamba/MoE interleave held against "
-              "the reference",
-    "vlm": "cross-attention over vision embeddings",
-    "audio": "the audio front end and encoder-only serving",
-}
+#: why the port runs the hybrid family on the CPU only
+_HYBRID_ON_CUDA = (
+    "its card path needs model sharding over 4 cards: one full-width "
+    "period of jamba-1.5-large holds 4 MoE layers of 16 experts, 4 x 16 x "
+    "3 x 8192 x 24576 x 2 B = 77 GB in bf16, which does not fit one 80 GB "
+    "card beside anything else (ROADMAP.md, queue A: 'LM families still to "
+    "port', the hybrid interleave)")
 
 
-def check_supported(cfg) -> None:
-    """Raise for a family whose modules are not ported yet."""
-    if cfg.family in _UNSUPPORTED:
+def check_supported(cfg, device) -> None:
+    """Raise for a family the port does not run on ``device``: the hybrid
+    family on a CUDA device.  Called before anything is allocated there."""
+    if cfg.family == "hybrid" and torch.device(device).type == "cuda":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} needs "
-            f"{_UNSUPPORTED[cfg.family]}, which the "
-            f"port does not have yet (ROADMAP.md, queue A: 'LM families "
-            f"still to port')")
+            f"{cfg.name}: the hybrid family runs on the CPU only; "
+            f"{_HYBRID_ON_CUDA}")
 
 
 # ---------------------------------------------------------------------------
@@ -172,8 +180,8 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
     The structure and the constant leaves are the reference's; the random
     bits are not (tests carry the reference's weights across instead)."""
-    check_supported(cfg)
     device = torch.device(device)
+    check_supported(cfg, device)
     pdt = dt(cfg.param_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -271,8 +279,8 @@ def grow_cache(cache: Dict[str, Any], cfg, max_len: int) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 #  Layer application
 # ---------------------------------------------------------------------------
-def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, cache, cache_pos,
-                 mode):
+def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, vision, cache,
+                 cache_pos, mode):
     """One layer at in-period position ``pos``.  Returns (h, new_cache)."""
     new_cache: Dict[str, Any] = {}
     hin = rms_norm(h, sub["ln1"], cfg.norm_eps)
@@ -299,6 +307,25 @@ def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, cache, cache_pos,
         if st_new is not None:
             new_cache["conv"], new_cache["h"] = st_new
         h = h + out
+    if cfg.has_cross_attn(pos):
+        # decode reads the vision K/V its prefill cached; a prefill without
+        # vision (text-only serving) skips the branch and caches none
+        cached = mode == "decode" and "xk" in cache
+        if cached or vision is not None:
+            hx = rms_norm(h, sub["ln_x"], cfg.norm_eps)
+            if cached:
+                xk, xv = cache["xk"], cache["xv"]
+                out = _cross_with_cache(hx, xk, xv, sub["xattn"], cfg)
+                # the same objects: the decode copy-back skips them
+                new_cache["xk"], new_cache["xv"] = xk, xv
+            else:
+                out, (xk, xv) = attn_block(
+                    hx, vision, sub["xattn"], cfg, rules, q_pos,
+                    torch.arange(vision.shape[1], device=h.device),
+                    causal=False, use_rope=False)
+                if mode == "prefill":
+                    new_cache["xk"], new_cache["xv"] = xk, xv
+            h = h + torch.tanh(sub["xattn"]["gate"].to(h.dtype)) * out
     if cfg.d_ff > 0:
         hin2 = rms_norm(h, sub["ln2"], cfg.norm_eps)
         if cfg.ffn_kind(pos) == "moe":
@@ -309,11 +336,24 @@ def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, cache, cache_pos,
     return h, new_cache
 
 
+def _cross_with_cache(hx, xk, xv, p, cfg):
+    """Cross-attention against the cached vision K/V (the decode path):
+    plain sdpa over ``kh_eff`` heads, no softcap, as the reference's."""
+    B, Sq, _ = hx.shape
+    h_, kh, hd = cfg.n_heads, cfg.kh_eff, cfg.hd
+    cdt = dt(cfg.compute_dtype)
+    q = (hx.to(cdt) @ p["wq"].to(cdt)).reshape(B, Sq, kh, h_ // kh, hd)
+    mask = torch.ones((1, 1, 1, Sq, xk.shape[1]), dtype=torch.bool,
+                      device=hx.device)
+    out = sdpa(q, xk.to(cdt), xv.to(cdt), mask, 0.0)
+    return out.reshape(B, Sq, h_ * hd) @ p["wo"].to(cdt)
+
+
 # ---------------------------------------------------------------------------
 #  Backbone (a loop over periods)
 # ---------------------------------------------------------------------------
 def backbone(params, h, cfg, rules: Rules, mode: str, q_pos, kv_pos,
-             cache=None, cache_pos: Optional[int] = None):
+             vision=None, cache=None, cache_pos: Optional[int] = None):
     """h: [B, S, d] -> (h, new_cache).
 
     mode 'prefill' stacks each layer's new cache along a leading layer dim.
@@ -332,8 +372,8 @@ def backbone(params, h, cfg, rules: Rules, mode: str, q_pos, kv_pos,
             sub = _index(blocks[key], i)
             cc = ({n: t[i] for n, t in cache[key].items()}
                   if mode == "decode" else None)
-            h, nc = _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, cc,
-                                 cache_pos, mode)
+            h, nc = _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos,
+                                 vision, cc, cache_pos, mode)
             if mode == "decode":
                 for name, new in nc.items():
                     if new is not cc[name]:   # attention wrote its view
@@ -358,8 +398,14 @@ def _index(tree, i):
 #  Entry points
 # ---------------------------------------------------------------------------
 def _embed(params, batch, cfg, rules: Rules):
+    cdt = dt(cfg.compute_dtype)
+    if cfg.family == "audio":
+        # the stub front end's frame embeddings [B, T, d]
+        x = batch["frames"].to(cdt) @ params["in_proj_w"].to(cdt)
+        x = x + params["in_proj_b"].to(cdt)
+        return rms_norm(x, params["in_ln"], cfg.norm_eps)
     # gather then cast: the same values as the reference's cast then gather
-    return params["tok_embed"][batch["tokens"]].to(dt(cfg.compute_dtype))
+    return params["tok_embed"][batch["tokens"]].to(cdt)
 
 
 def _logits(params, h, cfg, rules: Rules):
@@ -369,12 +415,16 @@ def _logits(params, h, cfg, rules: Rules):
 
 
 def forward_prefill(params, batch, cfg, rules: Rules = NO_RULES):
-    """Full forward over the prompt -> (last-position logits, cache)."""
-    check_supported(cfg)
+    """Full forward over the prompt -> (last-position logits, cache).
+
+    ``batch`` holds ``tokens`` [B, S] (audio: ``frames`` [B, T, d]) and, for
+    a vlm, optionally ``vision`` [B, n_vision_tokens, d]."""
+    check_supported(cfg, params["head_w"].device)
     x = _embed(params, batch, cfg, rules)
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)
-    h, cache = backbone(params, x, cfg, rules, "prefill", pos, pos)
+    h, cache = backbone(params, x, cfg, rules, "prefill", pos, pos,
+                        vision=batch.get("vision"))
     logits = _logits(params, h[:, -1:], cfg, rules)
     if cache is not None:
         cache["pos_idx"] = S
@@ -385,8 +435,9 @@ def decode_step(params, cache, batch, cfg, rules: Rules = NO_RULES):
     """One-token decode against the cache -> (logits [B,1,V], cache).
 
     The cache is donated: its tensors are updated in place and the returned
-    cache shares them, with ``pos_idx`` one further."""
-    check_supported(cfg)
+    cache shares them, with ``pos_idx`` one further.  A vlm's cross-attention
+    reads the vision K/V its prefill cached."""
+    check_supported(cfg, params["head_w"].device)
     x = _embed(params, batch, cfg, rules)                # [B, 1, d]
     pos_idx = int(cache["pos_idx"])
     q_pos = torch.tensor([pos_idx], device=x.device)

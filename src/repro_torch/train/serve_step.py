@@ -41,10 +41,15 @@ def sample_token(logits: torch.Tensor, temperature: float = 0.0,
 @torch.no_grad()
 def generate(params, cfg, prompts: torch.Tensor, max_new_tokens: int,
              rules: Rules = NO_RULES, temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             vision: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched greedy/temperature generation (the plain serving loop).
-    prompts: [B, S] int on the parameters' device -> [B, max_new_tokens]."""
+    prompts: [B, S] int on the parameters' device -> [B, max_new_tokens].
+    ``vision`` [B, n_vision_tokens, d]: a vlm's patch embeddings, which the
+    prefill's cross-attention reads and caches for decode."""
     batch: Dict[str, Any] = {"tokens": prompts}
+    if vision is not None:
+        batch["vision"] = vision
     logits, cache = forward_prefill(params, batch, cfg, rules)
     cache = grow_cache(cache, cfg, prompts.shape[1] + max_new_tokens)
     tok = sample_token(logits, temperature, generator)

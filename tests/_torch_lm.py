@@ -1,0 +1,234 @@
+"""Shared parts of the port's LM tests (``test_torch_models*.py``,
+``test_torch_vlm.py``, ``test_torch_audio.py``, ``test_torch_hybrid.py``):
+the smoke configs of both packages, the reference's weights carried across
+by ``params_from_numpy``, inputs drawn from numpy seeds, and the parity
+checks those files parametrize over their architectures.
+
+The reference runs its flash-attention Pallas body in interpret mode
+(``attn_impl="interpret"``) and its plain scan (``ssm_impl="reference"``);
+the port runs its default ``auto`` route, which on the CPU is each kernel's
+plain torch version, and its ``reference`` route.  Tolerances: compute in
+float32 within rtol 1e-4 / atol 1e-4 (fp32 sums in other orders over a few
+layers); bfloat16 within rtol 5e-2 / atol 5e-2 (the frameworks round
+matmul outputs to bf16 at different points); greedy tokens identical at
+float32.
+
+A vlm's cross-attention gate is initialised to zero, and ``tanh(0) * out``
+would hide the whole branch from every check, so ``params`` sets each
+``xattn.gate`` to a nonzero value drawn from a numpy seed, the same in the
+reference's tree and the port's.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro import configs as ref_configs
+from repro.launch.serve import BatchedServer as RefServer
+from repro.launch.serve import Request as RefRequest
+from repro.models import transformer as ref_tf
+from repro.train.serve_step import generate as ref_generate
+from repro_torch import configs
+from repro_torch.kernels import launch_counts, reset_launches
+from repro_torch.launch.serve import BatchedServer, Request
+from repro_torch.models import transformer as tf
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.train.serve_step import generate, make_serve_steps
+
+FP32 = dict(rtol=1e-4, atol=1e-4)
+BF16 = dict(rtol=5e-2, atol=5e-2)
+
+
+def cfgs(arch, **kw):
+    """(reference cfg, port cfg) for the smoke config of ``arch``."""
+    ref = ref_configs.get_config(arch, smoke=True).replace(
+        attn_impl="interpret", ssm_impl="reference", **kw)
+    port = configs.get_config(arch, smoke=True).replace(**kw)
+    return ref, port
+
+
+def set_gates(tree, seed=13):
+    """Every ``xattn.gate`` of a numpy parameter tree set, in place, to a
+    value in [0.5, 1) from numpy ``seed``."""
+    rng = np.random.default_rng(seed)
+    for sub in tree["blocks"].values():
+        if "xattn" in sub:
+            g = sub["xattn"]["gate"]
+            sub["xattn"]["gate"] = rng.uniform(0.5, 1.0, g.shape).astype(
+                g.dtype)
+    return tree
+
+
+def params(ref_cfg):
+    """The reference's seeded parameters and the port's copy of them, with
+    nonzero cross-attention gates."""
+    p = set_gates(jax.tree.map(np.asarray, ref_tf.init_params(
+        ref_cfg, jax.random.PRNGKey(0))))
+    return jax.tree.map(jnp.asarray, p), params_from_numpy(p, device="cpu")
+
+
+def tokens(cfg, B, S, seed=3):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def vision(cfg, B, seed=17):
+    """Stub patch embeddings [B, n_vision_tokens, d_model]."""
+    return np.random.default_rng(seed).normal(
+        size=(B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+
+
+def frames(cfg, B, T, seed=19):
+    """Stub frame embeddings [B, T, d_model]."""
+    return np.random.default_rng(seed).normal(
+        size=(B, T, cfg.d_model)).astype(np.float32)
+
+
+def batches(cfg, B, S, seed=3):
+    """(reference batch, port batch) of the same numpy inputs: ``frames``
+    for audio, else ``tokens``, plus ``vision`` for a vlm."""
+    if cfg.family == "audio":
+        arrays = {"frames": frames(cfg, B, S, seed)}
+    else:
+        arrays = {"tokens": tokens(cfg, B, S, seed)}
+        if cfg.family == "vlm":
+            arrays["vision"] = vision(cfg, B, seed + 1)
+    ref = {k: jnp.asarray(v) for k, v in arrays.items()}
+    port = {k: torch.from_numpy(v).long() if k == "tokens"
+            else torch.from_numpy(v) for k, v in arrays.items()}
+    return ref, port
+
+
+def as_np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(
+        t, np.float32)
+
+
+def close_tree(got, want, tol, path=""):
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            close_tree(got[k], want[k], tol, f"{path}.{k}")
+    elif path.endswith("pos_idx"):
+        assert int(got) == int(want)
+    else:
+        np.testing.assert_allclose(as_np(got), as_np(want), err_msg=path,
+                                   **tol)
+
+
+# ------------------------------------------------------------------ checks
+def check_cache_shapes(arch, kw):
+    """make_cache_shapes equals the reference's, and a prefill's grown
+    cache has those shapes and dtypes (a vlm's prefill with vision)."""
+    ref_cfg, cfg = cfgs(arch, **kw)
+    want = ref_tf.make_cache_shapes(ref_cfg, 2, 12, ref_tf.NO_RULES)
+    got = tf.make_cache_shapes(cfg, 2, 12)
+    p = tf.init_params(cfg, device="cpu")
+    _, cache = tf.forward_prefill(p, batches(cfg, 2, 8)[1], cfg)
+    cache = tf.grow_cache(cache, cfg, 12)
+    assert set(got) == set(want) == set(cache)
+    for key, sub in want.items():
+        if key == "pos_idx":
+            assert got[key].shape == () and cache[key] == 8
+            continue
+        assert set(got[key]) == set(sub) == set(cache[key]), key
+        for name, leaf in sub.items():
+            assert tuple(got[key][name].shape) == leaf.shape, (key, name)
+            assert tuple(cache[key][name].shape) == leaf.shape, (key, name)
+            assert cache[key][name].dtype == got[key][name].dtype
+            assert str(got[key][name].dtype).split(".")[-1] == str(leaf.dtype)
+
+
+def check_prefill(arch, dtype, **kw):
+    """Last-position logits and the whole cache on both port routes."""
+    ref_cfg, cfg = cfgs(arch, compute_dtype=dtype, **kw)
+    ref_p, p = params(ref_cfg)
+    # 32 tokens: a multiple of the smoke configs' ssm_chunk (16), because
+    # the reference's chunked scan fails on a padded last chunk
+    ref_b, b = batches(cfg, 2, 32)
+    want_lg, want_cache = ref_tf.forward_prefill(ref_p, ref_b, ref_cfg)
+    tol = FP32 if dtype == "float32" else BF16
+    for impl in ("auto", "reference"):
+        run_cfg = cfg.replace(attn_impl=impl, ssm_impl=impl)
+        lg, cache = tf.forward_prefill(p, b, run_cfg)
+        assert lg.dtype == getattr(torch, dtype)
+        assert lg.shape == (2, 1, cfg.vocab_size)
+        np.testing.assert_allclose(as_np(lg), as_np(want_lg), **tol)
+        close_tree(cache, want_cache, tol)
+
+
+def check_decode(ref_cfg, cfg, prompt, steps, seed=5):
+    """Prefill, grow_cache and ``steps`` decode steps, each step's logits
+    and the final cache against the reference's, in fp32."""
+    ref_p, p = params(ref_cfg)
+    toks = tokens(cfg, 2, prompt + steps, seed)
+    ref_b, b = batches(cfg, 2, prompt, seed)
+    ref_b["tokens"] = jnp.asarray(toks[:, :prompt])
+    b["tokens"] = torch.from_numpy(toks[:, :prompt]).long()
+    lg_r, c_r = ref_tf.forward_prefill(ref_p, ref_b, ref_cfg)
+    lg, c = tf.forward_prefill(p, b, cfg)
+    c_r = ref_tf.grow_cache(c_r, ref_cfg, prompt + steps)
+    c = tf.grow_cache(c, cfg, prompt + steps)
+    close_tree(c, c_r, FP32)
+    # jitted, as the reference's own serving loop runs it
+    ref_decode = jax.jit(lambda p_, c_, b_: ref_tf.decode_step(p_, c_, b_,
+                                                               ref_cfg))
+    for t in range(prompt, prompt + steps):
+        lg_r, c_r = ref_decode(
+            ref_p, c_r, {"tokens": jnp.asarray(toks[:, t:t + 1])})
+        lg, c = tf.decode_step(
+            p, c, {"tokens": torch.from_numpy(toks[:, t:t + 1]).long()}, cfg)
+        np.testing.assert_allclose(as_np(lg), as_np(lg_r),
+                                   err_msg=f"step {t}", **FP32)
+    close_tree(c, c_r, FP32)
+
+
+def teacher_forcing(cfg, p, toks, steps=4, extra=None):
+    """(logits after prefill(all but ``steps`` tokens) + ``steps`` decode
+    steps, logits of prefill(all)), each [B, V].  ``extra``: more batch
+    entries for both prefills (a vlm's vision)."""
+    prefill, decode = make_serve_steps(cfg)
+    S = toks.shape[1]
+    lg, cache = prefill(p, dict(extra or {}, tokens=toks[:, :S - steps]))
+    cache = tf.grow_cache(cache, cfg, S)
+    for t in range(S - steps, S):
+        lg, cache = decode(p, cache, {"tokens": toks[:, t:t + 1]})
+    lg_ref, _ = prefill(p, dict(extra or {}, tokens=toks))
+    return lg[:, 0], lg_ref[:, 0]
+
+
+def check_generate(arch, with_vision=False):
+    """Greedy tokens identical to the reference's, in fp32, with no kernel
+    launched on the CPU."""
+    ref_cfg, cfg = cfgs(arch, compute_dtype="float32")
+    ref_p, p = params(ref_cfg)
+    prompts = tokens(cfg, 3, 16, seed=7)
+    ref_kw, kw = {}, {}
+    if with_vision:
+        v = vision(cfg, 3)
+        ref_kw, kw = {"vision": jnp.asarray(v)}, {"vision": torch.from_numpy(v)}
+    want = ref_generate(ref_p, ref_cfg, jnp.asarray(prompts), 8, **ref_kw)
+    reset_launches()
+    got = generate(p, cfg, torch.from_numpy(prompts).long(), 8, **kw)
+    assert got.shape == (3, 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert launch_counts()["flash_attention"] == 0        # CPU: plain only
+    assert launch_counts()["mamba_scan"] == 0
+
+
+def check_server(arch):
+    """``BatchedServer`` token-identical to the reference's (5 requests in
+    waves of 2, ragged max_new)."""
+    ref_cfg, cfg = cfgs(arch, compute_dtype="float32")
+    ref_p, p = params(ref_cfg)
+    prompts = tokens(cfg, 5, 12, seed=9)
+    ref_reqs = [RefRequest(rid=i, prompt=prompts[i], max_new=6 - (i % 2))
+                for i in range(5)]
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=6 - (i % 2))
+            for i in range(5)]
+    RefServer(ref_cfg, params=ref_p, batch=2).run(ref_reqs)
+    server = BatchedServer(cfg, params=p, batch=2, device="cpu")
+    done = server.run(reqs)
+    assert [r.out_tokens for r in done] == [r.out_tokens for r in ref_reqs]
+    assert [len(r.out_tokens) for r in done] == [6, 5, 6, 5, 6]
+    assert server.stats["prefills"] == 3 and server.stats["decode_steps"] == 15

@@ -596,6 +596,10 @@ def test_degrade_never_on_the_card(dev, fresh_torch, monkeypatch, failure):
     (1, 70, 200, 2, 2, 32, True, 0, 0.0, "bfloat16"),
     (1, 200, 70, 1, 1, 96, True, 0, 0.0, "bfloat16"),
     (2, 190, 190, 2, 3, 80, True, 64, 10.0, "bfloat16"),
+    # llama-3.2-vision's cross-attention edge (Skv mod 64 = 1, as 1601 is:
+    # the last kv tile holds one key) and hubert's non-causal encoder
+    (1, 130, 65, 2, 4, 128, False, 0, 0.0, "bfloat16"),
+    (2, 257, 257, 4, 1, 80, False, 0, 0.0, "bfloat16"),
     # fp32 at every head dim, crossing its tile edges (128 query rows, 64
     # keys; 256 / 32 at hd 8; 128 / 32 at hd 128; 64 / 32 at hd 256)
     (2, 257, 257, 4, 1, 80, True, 0, 0.0, "float32"),
@@ -816,6 +820,67 @@ def test_mixtral_smoke_prefill_launches_flash_once_a_layer(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(cache["pos0"]["k"].cpu(),
                                want_cache["pos0"]["k"], rtol=1e-4, atol=1e-4)
+
+
+def test_vlm_smoke_prefill_and_decode_on_the_card_match_torch_cpu(dev):
+    """A vlm of 2 layers (self-attention, then a layer with a gated
+    cross-attention over 65 vision tokens: the last kv tile holds one key),
+    its gate nonzero: the prefill launches flash once for the self- and
+    once for the cross-attention, and it and 3 decode steps over the cached
+    vision K/V agree with the CPU's plain route in fp32 (rtol 1e-4 / atol
+    1e-4)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    cfg = configs.get_config("llama-3.2-vision-11b", smoke=True).replace(
+        n_layers=2, cross_attn_period=2, cross_attn_offset=1,
+        n_vision_tokens=65, compute_dtype="float32")
+    p = tf.init_params(cfg, seed=0, device="cpu")
+    p["blocks"]["pos1"]["xattn"]["gate"].fill_(0.8)
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 43)))
+    vis = torch.from_numpy(RNG.normal(size=(2, 65, cfg.d_model))).float()
+    pg = _to_device(p, dev)
+    runs = []
+    for params, device in ((p, "cpu"), (pg, dev)):
+        reset_launches()
+        lg, cache = tf.forward_prefill(
+            params, {"tokens": toks[:, :40].to(device),
+                     "vision": vis.to(device)}, cfg)
+        assert launch_counts()["flash_attention"] == (
+            0 if device == "cpu" else 3)
+        xk = cache["pos1"]["xk"].cpu()
+        cache = tf.grow_cache(cache, cfg, 43)
+        logits = [lg.cpu()]
+        for t in range(40, 43):
+            lg, cache = tf.decode_step(
+                params, cache, {"tokens": toks[:, t:t + 1].to(device)}, cfg)
+            logits.append(lg.cpu())
+        runs.append((torch.cat(logits, 1), xk))
+    (want, want_xk), (got, got_xk) = runs
+    assert launch_counts()["flash_attention"] == 3       # none in decode
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_xk, want_xk, rtol=1e-4, atol=1e-4)
+
+
+def test_hubert_smoke_encoder_on_the_card_matches_torch_cpu(dev):
+    """The 2-layer audio encoder on stub frames: one non-causal flash launch
+    a layer, and the hidden state at every position agrees with the CPU's
+    plain route in fp32 (rtol 1e-4 / atol 1e-4)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    cfg = configs.get_config("hubert-xlarge", smoke=True).replace(
+        compute_dtype="float32")
+    p = tf.init_params(cfg, seed=0, device="cpu")
+    frames = torch.from_numpy(RNG.normal(size=(2, 130, cfg.d_model))).float()
+    pg = _to_device(p, dev)
+    runs = []
+    for params, device in ((p, "cpu"), (pg, dev)):
+        x = tf._embed(params, {"frames": frames.to(device)}, cfg, tf.NO_RULES)
+        pos = torch.arange(130, device=device)
+        reset_launches()
+        h, _ = tf.backbone(params, x, cfg, tf.NO_RULES, "prefill", pos, pos)
+        runs.append(h.cpu())
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(runs[1], runs[0], rtol=1e-4, atol=1e-4)
 
 
 def _to_device(tree, dev):
