@@ -3,7 +3,7 @@
     python3 chip_smoke.py                 # all phases
     python3 chip_smoke.py --profile       # all phases + profiled Q4.1 run,
                                           # served Q4.1 tick, LM prefill
-                                          # and decode step
+                                          # and decode step, a train step
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -91,7 +91,24 @@ Phases (any failure raises and the script exits non-zero):
    stub frames in waves of 4 through ``forward_prefill``, twice (logits
    bit-identical, 48 flash launches a wave); its route check compares the
    hidden state at every position.
-5. The ``kernels`` JSON line, the card line and, last,
+5. LM training path.  Gradient route checks at full width and 2 layers
+   of stablelm-3b and falcon-mamba-7b: one microbatch through
+   ``forward_train`` and its backward on the kernel route (the kernels'
+   forwards through their autograd Functions, the plain versions'
+   gradients) and the plain route in bf16, against the fp32 plain route:
+   loss, global and per-leaf gradient norms within phase 4's BF16_MARGIN
+   rule.  Then stablelm-3b whole (2.795e9 parameters, fp32 params, grads
+   and AdamW moments: 41.7 GiB) and falcon-mamba-7b at 8 of 64 layers
+   through ``launch.train.train_loop``, twice from seed 0: finite losses,
+   step 0 within 10% of ln(vocab), the kernel launched twice a layer a
+   microbatch (forward and remat recompute), the second run's losses
+   within RERUN_RTOL; step ms, tokens/s, 6·N·tokens / step time against
+   the bf16 peak, peak memory, a microbatch's forward/backward split and
+   the Functions' plain backward at one layer's shape.  Then resume at
+   the stablelm smoke config: 2 steps, a checkpoint, 2 resumed steps
+   equal to 4 straight ones.  ``--profile``: one stablelm-3b train step
+   under the profiler.
+6. The ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; exits non-zero without one, and without the repository's
@@ -2024,13 +2041,353 @@ def serve_encoder(dev: torch.device, profile: bool = False) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+#  Phase 5: LM training
+# ---------------------------------------------------------------------------
+#: the trained models: stablelm-3b whole (global batch 8 x 2048 in the
+#: config's 4 microbatches, 4 steps); falcon-mamba-7b at 8 of its 64 layers
+#: (its whole 117 GB of state does not fit the card; 2 x 2048 in 2
+#: microbatches, 3 steps).  Tokens from ``InputPipeline``, seed 0.
+TRAIN = {"stablelm-3b": dict(depth=0, batch=8, grad_accum=4, steps=4),
+         "falcon-mamba-7b": dict(depth=8, batch=2, grad_accum=2, steps=3)}
+TRAIN_SEQ = 2048
+#: step 0's loss against ln(vocab): random weights scaled 0.02 give
+#: near-uniform logits
+LOSS0_RTOL = 0.10
+#: a second run from the same seed: every loss within this relative gap
+#: (the step is deterministic unless an atomic adds in another order)
+RERUN_RTOL = 1e-3
+#: the resume check's parameters after the resumed steps, within this of
+#: the uninterrupted run's (a checkpoint round trip is exact; the losses
+#: must be equal)
+RESUME_ATOL = 1e-6
+
+
+def _grad_norms(cfg, params, batch):
+    """(loss, per-leaf gradient norms, flash and scan launches) of one
+    ``forward_train`` + backward."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import tree_leaves
+    leaves = tree_leaves(params)
+    reset_launches()
+    loss, _ = tf.forward_train(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    norms = torch.stack([g.float().norm() for g in grads]).cpu()
+    return loss.item(), norms, counts["flash_attention"], counts["mamba_scan"]
+
+
+def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
+    """One microbatch of the trained shape (seed 0's first block) through
+    ``forward_train`` and its backward at ``arch``'s full width and
+    ``depth`` layers: the kernel route (the kernels' forwards, the plain
+    versions' gradients) against the plain route, both in the compute
+    dtype, with the fp32 plain route as the yardstick.  Loss, global
+    gradient norm and every leaf's gradient norm: the kernel route's
+    relative gap to the yardstick must be no larger than twice the plain
+    route's plus BF16_MARGIN (phase 4's rule)."""
+    from repro_torch.data import (InputPipeline, PipelineConfig,
+                                  make_lm_batch_fn)
+    from repro_torch.launch.train import to_device
+    from repro_torch.train.optimizer import tree_leaves
+    spec = TRAIN[arch]
+    cfg, params = make_model(arch, dev, depth)
+    rows = spec["batch"] // spec["grad_accum"]
+    blk = next(iter(InputPipeline(PipelineConfig(
+        seq_len=TRAIN_SEQ, global_batch=rows, vocab_size=cfg.vocab_size,
+        docs_per_window=512, seed=0))))
+    batch = to_device(make_lm_batch_fn(cfg)(blk), dev)
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    plain = dict(attn_impl="reference", ssm_impl="reference")
+    truth = _grad_norms(cfg.replace(compute_dtype="float32", **plain),
+                        params, batch)
+    kernel = _grad_norms(cfg, params, batch)
+    ref = _grad_norms(cfg.replace(**plain), params, batch)
+    launched = kernel[2] + kernel[3]
+    if launched != 2 * depth or ref[2] + ref[3] + truth[2] + truth[3]:
+        raise AssertionError(f"{arch}: the kernel route launched {launched} "
+                             f"kernels, expected {2 * depth} (a layer, "
+                             f"forward and remat recompute); the plain "
+                             f"routes must launch none")
+
+    def gaps(run):
+        loss_gap = abs(run[0] - truth[0]) / abs(truth[0])
+        leaf = (run[1] - truth[1]).abs() / truth[1].clamp(min=1e-30)
+        glob = abs(float(run[1].norm() - truth[1].norm())) / float(
+            truth[1].norm())
+        return loss_gap, glob, leaf
+    k_loss, k_glob, k_leaf = gaps(kernel)
+    p_loss, p_glob, p_leaf = gaps(ref)
+    worst = int(torch.argmax(k_leaf - 2 * p_leaf))
+    log(f"  {arch}: train route check, {rows} x {TRAIN_SEQ} tokens at depth "
+        f"{depth}: fp32 plain loss {truth[0]:.6f}, global grad norm "
+        f"{float(truth[1].norm()):.6g}; {cfg.compute_dtype} kernel route "
+        f"rel gaps loss {k_loss:.3g} global {k_glob:.3g} worst leaf "
+        f"{float(k_leaf.max()):.3g}; {cfg.compute_dtype} plain route "
+        f"{p_loss:.3g} / {p_glob:.3g} / {float(p_leaf.max()):.3g}; "
+        f"{len(k_leaf)} leaves; kernel launches {launched} "
+        f"(rule: kernel <= 2 x plain + {BF16_MARGIN})")
+    bad = [(name, k, p) for name, k, p in (
+        ("loss", k_loss, p_loss), ("global grad norm", k_glob, p_glob),
+        (f"leaf {worst} grad norm", float(k_leaf[worst]),
+         float(p_leaf[worst]))) if k > 2 * p + BF16_MARGIN]
+    if bad:
+        raise AssertionError(f"{arch}: kernel route beyond the plain "
+                             f"route's margin: {bad}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _function_times(arch: str, cfg, dev: torch.device) -> dict:
+    """The kernel's forward and the Function's plain backward, each alone,
+    at one layer's microbatch shape of the trained model (CUDA events, the
+    median of 5): what a backward kernel would replace."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    spec = TRAIN[arch]
+    rows, S = spec["batch"] // spec["grad_accum"], TRAIN_SEQ
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    bf16 = torch.bfloat16
+    if arch == "stablelm-3b":
+        kh, hd = cfg.n_kv_heads, cfg.hd
+        G = cfg.n_heads // kh
+        ins = [torch.randn(s, generator=gen, device=dev).to(bf16)
+               for s in ((rows, S, kh, G, hd), (rows, S, kh, hd),
+                         (rows, S, kh, hd))]
+        fwd = lambda *a: flash_attention(*a, causal=True)
+        shape = f"[{rows}, {S}, {kh}, {G}, {hd}] bf16"
+    else:
+        d, N = cfg.d_inner, cfg.ssm_state
+        ins = list(_scan_inputs(gen, rows, S, d, N, True, bf16))
+        fwd = lambda *a: mamba_scan(*a, chunk=cfg.ssm_chunk)[0]
+        shape = f"Bt {rows}, T {S}, d {d}, N {N}, bf16 delta/x"
+    leaves = [t.requires_grad_(True) for t in ins]
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: fwd(*leaves), iters=5, warmup=1)
+    out = fwd(*leaves)
+    g = torch.ones_like(out)
+
+    def backward():
+        torch.autograd.grad(out, leaves, g, retain_graph=True)
+    bwd_ms = time_ms(backward, iters=5, warmup=1)
+    log(f"  {arch}: {'flash' if arch == 'stablelm-3b' else 'scan'} at one "
+        f"layer's microbatch ({shape}): kernel forward {fwd_ms:.4f} ms, "
+        f"the Function's plain backward {bwd_ms:.4f} ms")
+    return {"forward_ms": fwd_ms, "backward_ms": bwd_ms}
+
+
+def _step_breakdown(cfg, params, batch) -> dict:
+    """One microbatch's forward and backward (host clock, synchronised)
+    on the trained parameters."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import tree_leaves
+    m = cfg.grad_accum
+    mb = {k: v[:v.shape[0] // m] for k, v in batch.items()}
+    for t in tree_leaves(params):
+        t.requires_grad_(True)
+    times = []
+    for _ in range(2):                   # the first one warms the caches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = tf.forward_train(params, mb, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        times.append((t1 - t0, time.perf_counter() - t1))
+        for t in tree_leaves(params):
+            t.grad = None
+    for t in tree_leaves(params):
+        t.requires_grad_(False)
+    fwd, bwd = times[-1]
+    return {"forward_s": fwd, "backward_s": bwd}
+
+
+def train_model(arch: str, dev: torch.device, profile: bool = False):
+    """``arch`` (TRAIN) through ``launch.train.train_loop`` twice from seed
+    0: finite losses, step 0 near ln(vocab), the kernel launched once a
+    layer a microbatch in the forward and once more in the remat
+    recompute, the second run's losses within RERUN_RTOL (and whether they
+    are bit-identical).  Prints step ms, tokens/s, 6·N·tokens / step time
+    against the bf16 peak and the peak memory; then the forward/backward
+    split of a microbatch and the Functions' backward at one layer's
+    shape.  Returns (the kernel's launches in the two runs, the Function
+    times)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import (InputPipeline, PipelineConfig,
+                                  make_lm_batch_fn)
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.train import to_device, train_loop
+    from repro_torch.models import transformer as tf
+    spec = TRAIN[arch]
+    full = get_config(arch)
+    cfg = full.replace(n_layers=spec["depth"] or full.n_layers,
+                       grad_accum=spec["grad_accum"])
+    kernel = "flash_attention" if cfg.family == "dense" else "mamba_scan"
+    n = tf.param_count(cfg)
+    tokens = spec["batch"] * TRAIN_SEQ
+    per_step = cfg.n_layers * cfg.grad_accum * 2
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers, " if spec["depth"]
+             else "whole, ")
+    log(f"{arch}: training {depth}{n / 1e9:.3f}B {cfg.param_dtype} params "
+        f"(+ grads, + AdamW m/v in {cfg.opt_state_dtype}: "
+        f"{n * 16 / 2**30:.1f} GiB), compute {cfg.compute_dtype}, remat "
+        f"{cfg.remat_policy}, global batch {spec['batch']} x {TRAIN_SEQ} in "
+        f"{cfg.grad_accum} microbatches, {spec['steps']} steps; card: "
+        f"{card_line()}")
+    runs, launches, res = [], 0, None
+    torch.cuda.synchronize()
+    reset_launches()
+    for attempt in (1, 2):
+        res = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()[kernel]
+        t = time.perf_counter()
+        res = train_loop(cfg, steps=spec["steps"], batch=spec["batch"],
+                         seq_len=TRAIN_SEQ, log_every=1, seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = launch_counts()[kernel] - before
+        losses, step_s = res["losses"], res["step_seconds"]
+        if launched != per_step * spec["steps"]:
+            raise AssertionError(f"{arch}#{attempt}: {kernel} launched "
+                                 f"{launched} times, expected {per_step} a "
+                                 f"step ({cfg.n_layers} layers x "
+                                 f"{cfg.grad_accum} microbatches x 2: the "
+                                 f"forward and the remat recompute) x "
+                                 f"{spec['steps']}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{arch}#{attempt}: losses {losses}")
+        ln_v = float(np.log(cfg.vocab_size))
+        if abs(losses[0] - ln_v) > LOSS0_RTOL * ln_v:
+            raise AssertionError(f"{arch}#{attempt}: step 0's loss "
+                                 f"{losses[0]:.4f} is not within "
+                                 f"{LOSS0_RTOL:.0%} of ln({cfg.vocab_size})"
+                                 f" = {ln_v:.4f}")
+        steady = statistics.median(step_s[1:])
+        log(f"  {arch}#{attempt}: {spec['steps']} steps in {wall:.2f}s "
+            f"(set-up included); losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)} (ln V = {ln_v:.4f}); "
+            f"step ms {', '.join(f'{s * 1e3:.1f}' for s in step_s)}; "
+            f"steady step {steady * 1e3:.1f} ms, {tokens / steady:.0f} "
+            f"tok/s, 6*N*tokens/step = {6 * n * tokens / steady / 1e12:.1f} "
+            f"TFLOP/s = {6 * n * tokens / steady / PEAK_BF16_S:.4f} of the "
+            f"989 TFLOP/s bf16 peak; {kernel} launches={launched} "
+            f"({per_step} a step); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; card: "
+            f"{card_line()}")
+        runs.append(losses)
+        launches += launched
+    same_losses = runs[0] == runs[1]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(*runs))
+    log(f"  {arch}: second run's losses "
+        f"{'bit-identical' if same_losses else f'max rel gap {gap:.3g}'} "
+        f"(tolerance {RERUN_RTOL})")
+    if gap > RERUN_RTOL:
+        raise AssertionError(f"{arch}: the second run's losses differ by "
+                             f"{gap:.3g}")
+    params, opt = res["params"], res["opt_state"]
+    del res
+    blk = next(iter(InputPipeline(PipelineConfig(
+        seq_len=TRAIN_SEQ, global_batch=spec["batch"],
+        vocab_size=cfg.vocab_size, docs_per_window=max(spec["batch"] * 16,
+                                                      512), seed=0))))
+    batch = to_device(make_lm_batch_fn(cfg)(blk), dev)
+    if profile:
+        from repro_torch.train.optimizer import OptConfig
+        from repro_torch.train.train_step import make_train_step
+        step = make_train_step(cfg, OptConfig())
+        step(params, opt, batch)                        # warm
+        profile_device(f"{arch} train step ({spec['batch']} x {TRAIN_SEQ}, "
+                       f"{cfg.grad_accum} microbatches)",
+                       lambda: step(params, opt, batch))
+    del opt
+    torch.cuda.empty_cache()
+    split = _step_breakdown(cfg, params, batch)
+    fwd, bwd = split["forward_s"], split["backward_s"]
+    log(f"  {arch}: one microbatch ({spec['batch'] // cfg.grad_accum} x "
+        f"{TRAIN_SEQ}): forward {fwd * 1e3:.1f} ms, backward (the remat "
+        f"recompute included) {bwd * 1e3:.1f} ms; backward share "
+        f"{bwd / (fwd + bwd):.4f}; {cfg.grad_accum} microbatches = "
+        f"{cfg.grad_accum * (fwd + bwd) * 1e3:.1f} ms of the "
+        f"{steady * 1e3:.1f} ms step, the rest AdamW and the host")
+    del params, batch
+    torch.cuda.empty_cache()
+    fn = _function_times(arch, cfg, dev)
+    calls = cfg.n_layers * cfg.grad_accum
+    log(f"  {arch}: the Function's plain backward, {calls} calls a step: "
+        f"{calls * fn['backward_ms']:.1f} ms = "
+        f"{calls * fn['backward_ms'] / (steady * 1e3):.4f} of the step "
+        f"(the kernel's forward {2 * calls * fn['forward_ms']:.1f} ms over "
+        f"{2 * calls} launches)")
+    fn.update(step_ms=steady * 1e3, backward_share=bwd / (fwd + bwd),
+              function_backward_share=calls * fn["backward_ms"]
+              / (steady * 1e3))
+    torch.cuda.empty_cache()
+    return launches, fn
+
+
+def train_resume(dev: torch.device) -> None:
+    """stablelm-3b's smoke config on the card: 4 steps straight, against 2
+    steps saved by ``CheckpointManager`` and 2 more resumed from it into a
+    fresh state (``train_loop(..., resume=True)``, one schedule).  The
+    resumed steps' losses must equal the uninterrupted run's exactly and
+    their parameters be within RESUME_ATOL."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.checkpoint import latest_step
+    from repro_torch.train.optimizer import OptConfig, tree_leaves
+    cfg = get_config("stablelm-3b", smoke=True)
+    kw = dict(batch=8, seq_len=256, log_every=100, device=dev,
+              ocfg=OptConfig(lr=1e-2, warmup_steps=1, total_steps=4))
+    whole = train_loop(cfg, steps=4, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        first = train_loop(cfg, steps=2, ckpt_dir=d, ckpt_every=2, **kw)
+        saved = latest_step(d)
+        rest = train_loop(cfg, steps=4, ckpt_dir=d, resume=True, **kw)
+    gap = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+        tree_leaves(rest["params"]), tree_leaves(whole["params"])))
+    log(f"  {cfg.name} (smoke, 8 x 256, grad_accum {cfg.grad_accum}): "
+        f"uninterrupted losses {whole['losses']}; saved at step {saved}, "
+        f"resumed {rest['steps_done']} steps: {rest['losses']}; params max "
+        f"abs gap {gap:.3g} (tolerance {RESUME_ATOL})")
+    if first["losses"] != whole["losses"][:2] or \
+            rest["losses"] != whole["losses"][2:]:
+        raise AssertionError("resume: the losses differ from the "
+                             "uninterrupted run's")
+    if saved != 2 or rest["steps_done"] != 2 or gap > RESUME_ATOL:
+        raise AssertionError(f"resume: saved {saved}, resumed "
+                             f"{rest['steps_done']} steps, params gap {gap}")
+
+
+def phase_train(dev: torch.device, profile: bool) -> dict:
+    """Phase 5: the gradient route checks, stablelm-3b whole and
+    falcon-mamba-7b at 8 layers through ``train_loop``, the resume check.
+    Returns each kernel's launches in the training runs and the Function
+    times for the kernels line."""
+    t0 = time.perf_counter()
+    train_route_check("stablelm-3b", dev)
+    train_route_check("falcon-mamba-7b", dev)
+    flash, flash_fn = train_model("stablelm-3b", dev, profile)
+    scan, scan_fn = train_model("falcon-mamba-7b", dev)
+    train_resume(dev)
+    log(f"training phase wall: {time.perf_counter() - t0:.1f}s")
+    return {"flash_attention": (flash, flash_fn), "mamba_scan": (scan, scan_fn)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one more fused Q4.1 run, one warm "
-                         "served Q4.1 tick, and one prefill and one decode "
-                         "step of each LM (device busy time by kernel, "
-                         "idle share)")
+                         "served Q4.1 tick, one prefill and one decode "
+                         "step of each LM and one stablelm-3b train step "
+                         "(device busy time by kernel, idle share)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2128,7 +2485,14 @@ def main() -> int:
     launches["flash_attention"] += serve_vlm(gen.device, args.profile)
     launches["flash_attention"] += serve_encoder(gen.device, args.profile)
 
-    # ---- phase 5: result lines
+    # ---- phase 5: the LM training path
+    log(f"LM training path (train_loop, sequences of {TRAIN_SEQ}):")
+    trained = phase_train(gen.device, args.profile)
+    for name, (n, fn) in trained.items():
+        launches[name] += n
+        measured[name].update({f"train_{k}": v for k, v in fn.items()})
+
+    # ---- phase 6: result lines
     sources = {"hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
                               "src/repro/kernels/hash_join/kernel.py:68"),
                "radix_groupby": ("src/repro_torch/csrc/radix_groupby.cu",
@@ -2153,6 +2517,18 @@ def main() -> int:
             row["probe_note"] = ("1,048,576 rows against part; device_ms "
                                  "from torch.profiler; other_tables: "
                                  "customer, supplier and date")
+        row.update({k: v for k, v in m.items() if k.startswith("train_")})
+        if name in trained:
+            row["train_note"] = (
+                f"launches include {trained[name][0]} from training (two "
+                f"train_loop runs: a launch a layer a microbatch in the "
+                f"forward and one in the remat recompute); train_forward_ms "
+                f"/ train_backward_ms: the kernel's forward and the "
+                f"Function's plain-recompute backward at one layer's "
+                f"microbatch shape; train_backward_share: a microbatch's "
+                f"backward over its forward + backward; "
+                f"train_function_backward_share: the plain backward's calls "
+                f"over the step")
         if name == "flash_attention":
             row.update({k: v for k, v in m.items() if k.startswith("fp32_")
                         or k.endswith("_prefill")})

@@ -1,4 +1,4 @@
-from .ops import flash_attention
+from .ops import FlashAttentionFunction, flash_attention
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "flash_attention_ref"]
+__all__ = ["FlashAttentionFunction", "flash_attention", "flash_attention_ref"]

@@ -9,7 +9,16 @@ the tensor cores with fp32 accumulation; fp32 runs
 ``csrc/flash_attention.cu``, fp32 FMAs that keep the fp32 tolerance, laid
 out as a register-tiled SIMT GEMM fed by a ``cp.async`` ring.
 Operations, not bytes, bound both; their times, launches and bounds on the
-H100 are in PERF.md."""
+H100 are in PERF.md.
+
+Gradients.  The reference has no backward kernel and cannot differentiate
+through its Pallas kernel: its trainer takes ``jax.grad`` of the plain
+attention.  Here a CUDA tensor that needs a gradient goes through
+``FlashAttentionFunction``: the forward is the kernel, and the backward
+recomputes the plain version (``flash_attention_ref``) under autograd and
+returns its gradients, which is the reference's gradient by design.  On
+the card that backward and the tests are the only callers of the plain
+version (``chip_smoke.py`` times it beside the kernel)."""
 from __future__ import annotations
 
 import math
@@ -40,8 +49,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    softcap=softcap)
     if impl not in ("auto", "cuda"):
         raise ValueError(f"unknown flash_attention impl {impl!r}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal, window, softcap,
+                                            flash_attention_cuda)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 softcap=softcap)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``forward_fn``'s attention with the plain version's gradient.
+
+    ``apply(q, k, v, causal, window, softcap, forward_fn)``: the forward
+    calls ``forward_fn(q, k, v, causal=, window=, softcap=)`` (the kernel,
+    ``flash_attention_cuda``; the CPU tests pass the plain version) and
+    saves q, k and v with ``save_for_backward``, so that
+    ``torch.utils.checkpoint`` drops them and recomputes the forward (the
+    kernel again) in the backward.  The backward recomputes
+    ``flash_attention_ref`` on them under autograd: the scores
+    [B, Kh, G, Sq, Skv] in fp32 exist for one layer at a time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, forward_fn):
+        ctx.save_for_backward(q, k, v)
+        ctx.options = dict(causal=causal, window=window, softcap=softcap)
+        return forward_fn(q, k, v, **ctx.options)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(need)
+                   for t, need in zip(ctx.saved_tensors, needs)]
+            out = flash_attention_ref(*qkv, **ctx.options)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in qkv if t.requires_grad], grad_out))
+        return tuple(next(grads) if need else None for need in needs) + (
+            None,) * 4
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

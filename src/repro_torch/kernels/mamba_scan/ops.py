@@ -5,7 +5,18 @@ It replaces the TPU kernel ``repro/kernels/mamba_scan/kernel.py``:
 ``_mamba_scan_kernel`` / ``mamba_scan_pallas``.  Bound on the card: one
 exp per (b, t, c, n) on the special-function units, above the bytes of
 delta, x and y (the [d, N] outer products stay in registers); its time,
-launches and bound on the H100 are in PERF.md."""
+launches and bound on the H100 are in PERF.md.
+
+Gradients.  The reference has no backward kernel: its trainer takes
+``jax.grad`` of the plain chunked scan.  Here a CUDA tensor that needs a
+gradient goes through ``MambaScanFunction``: the forward is the kernel,
+and the backward recomputes the plain chunked scan
+(``mamba_scan_chunked``, a ``torch.utils.checkpoint`` a chunk) under
+autograd and returns its gradients for delta, x, B, C, A and h0, which is
+the reference's gradient by design.  That backward is a Python loop over
+time steps and is slow on the card; PERF.md has its share of a training
+step.  On the card it and the tests are the only callers of the plain
+versions (``chip_smoke.py`` times ``mamba_scan_ref`` beside the kernel)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -13,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _cuda
-from .ref import mamba_scan_ref
+from .ref import mamba_scan_chunked, mamba_scan_ref
 
 #: most state values a channel keeps in registers (csrc/mamba_scan.cu)
 MAX_STATE = 32
@@ -36,7 +47,8 @@ def default_lanes(Bt: int, d: int) -> int:
 
 def mamba_scan(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
                C: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
-               impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+               impl: str = "auto", chunk: int = 128
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused selective scan.  delta, x: [Bt, T, d], both float32 or both
     bfloat16 (widened to float32, which is exact); B, C: [Bt, T, N];
     A: [d, N]; h0: [Bt, d, N], float32 -> (y [Bt, T, d], hT [Bt, d, N]),
@@ -44,12 +56,50 @@ def mamba_scan(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
 
     impl: 'auto' (the kernel for CUDA tensors, the plain version for CPU
     tensors), 'cuda' (the kernel; anything else raises) or 'reference' (the
-    plain version on any device)."""
+    plain version on any device).  ``chunk``: the steps a chunk of the
+    backward's recompute (``MambaScanFunction``)."""
     if impl == "reference" or (impl == "auto" and not delta.is_cuda):
         return mamba_scan_ref(delta, x, B, C, A, h0)
     if impl not in ("auto", "cuda"):
         raise ValueError(f"unknown mamba_scan impl {impl!r}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (delta, x, B, C, A, h0)):
+        return MambaScanFunction.apply(delta, x, B, C, A, h0, chunk,
+                                       mamba_scan_cuda)
     return mamba_scan_cuda(delta, x, B, C, A, h0)
+
+
+class MambaScanFunction(torch.autograd.Function):
+    """``forward_fn``'s scan with the plain chunked scan's gradient.
+
+    ``apply(delta, x, B, C, A, h0, chunk, forward_fn)`` -> (y, hT): the
+    forward calls ``forward_fn(delta, x, B, C, A, h0)`` (the kernel,
+    ``mamba_scan_cuda``; the CPU tests pass the plain version) and saves
+    its six inputs with ``save_for_backward``, so that
+    ``torch.utils.checkpoint`` drops them and recomputes the forward (the
+    kernel again) in the backward.  The backward runs
+    ``mamba_scan_chunked(..., chunk)`` on them under autograd, widening
+    bf16 delta/x to fp32 as the kernel does; their gradients come back in
+    the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, delta, x, B, C, A, h0, chunk, forward_fn):
+        ctx.save_for_backward(delta, x, B, C, A, h0)
+        ctx.chunk = chunk
+        return forward_fn(delta, x, B, C, A, h0)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_hT):
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            y, hT = mamba_scan_chunked(*inputs, chunk=ctx.chunk)
+            grads = iter(torch.autograd.grad(
+                (y, hT), [t for t in inputs if t.requires_grad],
+                (grad_y, grad_hT)))
+        return tuple(next(grads) if need else None for need in needs) + (
+            None, None)
 
 
 def mamba_scan_cuda(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,

@@ -1,0 +1,162 @@
+"""Training launcher: the end-to-end loop wiring every layer of the
+trainer on one card.
+
+  ETL input pipeline (core engine, shared caches, Algorithm-2 prefetch;
+  the batch copied to the card on the prefetch thread)
+    -> train_step (microbatch splits, per-period remat, the kernels'
+       forwards with the plain versions' gradients, in-place AdamW)
+    -> CheckpointManager (async, atomic, keep-k) + StragglerWatchdog
+
+Runs on the card unless given ``--device cpu`` (the kernels' plain
+versions, for the smoke configs).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
+      --steps 4 --batch 8 --seq-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
+      --smoke --device cpu --steps 50 --batch 8 --seq-len 128
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..configs import ARCH_IDS, get_config
+from ..data import InputPipeline, PipelineConfig, PrefetchQueue, make_lm_batch_fn
+from ..models.layers import NO_RULES, resolve_device
+from ..models.transformer import check_supported, init_params
+from ..train.checkpoint import (CheckpointManager, latest_step,
+                                restore_checkpoint)
+from ..train.fault import StragglerWatchdog
+from ..train.optimizer import OptConfig, init_opt_state
+from ..train.train_step import make_train_step
+
+
+def build_state(cfg, seed: int = 0, device=None):
+    """(params from a ``torch.Generator`` seeded with ``seed``, zero opt
+    state), on ``device`` (the card unless the caller asks for another)."""
+    device = resolve_device(device)
+    check_supported(cfg, device)
+    params = init_params(cfg, seed=seed, device=device)
+    return params, init_opt_state(params, cfg)
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A host batch -> tensors on ``device`` (token ids as int64)."""
+    return {k: torch.tensor(v, dtype=torch.long if v.dtype.kind == "i"
+                            else None).to(device)
+            for k, v in batch.items()}
+
+
+def train_loop(cfg, *, steps: int, batch: int, seq_len: int,
+               ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
+               resume: bool = False, log_every: int = 10,
+               prefetch_depth: int = 2, seed: int = 0, rules=NO_RULES,
+               device=None, ocfg: Optional[OptConfig] = None
+               ) -> Dict[str, Any]:
+    """Train ``steps`` steps (from the latest checkpoint with ``resume``).
+
+    Returns {'losses', 'step_seconds', 'steps_done', 'tokens_per_s',
+    'straggler_events', 'params', 'opt_state'}.  ``ocfg`` defaults to the
+    reference's schedule for ``steps``.  A resumed run skips the batches
+    the checkpointed steps consumed, so it sees the batches an
+    uninterrupted run would (the reference's restarts its pipeline)."""
+    device = resolve_device(device)
+    if ocfg is None:
+        ocfg = OptConfig(total_steps=max(steps, 2),
+                         warmup_steps=max(steps // 10, 1))
+    step_fn = make_train_step(cfg, ocfg, rules)
+
+    params, opt_state = build_state(cfg, seed, device)
+    start_step = 0
+    manager = None
+    if ckpt_dir:
+        manager = CheckpointManager(ckpt_dir, every_steps=ckpt_every, keep=3)
+        if resume and latest_step(ckpt_dir) is not None:
+            state, meta = restore_checkpoint(
+                ckpt_dir, {"params": params, "opt": opt_state})
+            params, opt_state = state["params"], state["opt"]
+            start_step = int(meta["step"])
+            print(f"resumed from step {start_step}")
+
+    pc = PipelineConfig(seq_len=seq_len, global_batch=batch,
+                        vocab_size=cfg.vocab_size,
+                        docs_per_window=max(batch * 16, 512),
+                        prefetch_depth=prefetch_depth, seed=seed)
+    to_model = make_lm_batch_fn(cfg)
+    blocks = iter(InputPipeline(pc))
+    for _ in range(start_step):
+        next(blocks)
+    feed = PrefetchQueue(blocks, depth=pc.prefetch_depth,
+                         stage_fn=lambda blk: to_device(to_model(blk),
+                                                        device))
+    watchdog = StragglerWatchdog(window=16, threshold=3.0)
+    losses, step_seconds = [], []
+    t_start = time.perf_counter()
+    try:
+        for step in range(start_step, steps):
+            t0 = time.perf_counter()
+            mb = next(feed)
+            params, opt_state, metrics = step_fn(params, opt_state, mb)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            dt_step = time.perf_counter() - t0
+            step_seconds.append(dt_step)
+            watchdog.observe(step, dt_step)
+            if manager is not None:
+                manager.maybe_save(step + 1,
+                                   {"params": params, "opt": opt_state},
+                                   extra_meta={"arch": cfg.name})
+            if step % log_every == 0 or step == steps - 1:
+                print(f"step {step:5d}  loss {loss:.4f}  "
+                      f"lr {float(metrics['lr']):.2e}  "
+                      f"gnorm {float(metrics['grad_norm']):.3f}  "
+                      f"{dt_step*1e3:.0f} ms", flush=True)
+    finally:
+        feed.close()
+    if manager is not None:
+        manager.maybe_save(steps, {"params": params, "opt": opt_state},
+                           extra_meta={"arch": cfg.name}, force=True)
+        manager.wait()
+    wall = time.perf_counter() - t_start
+    done = steps - start_step
+    return {"losses": losses, "step_seconds": step_seconds,
+            "steps_done": done,
+            "tokens_per_s": done * batch * seq_len / max(wall, 1e-9),
+            "straggler_events": len(watchdog.events),
+            "params": params, "opt_state": opt_state}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' runs the "
+                         "kernels' plain versions)")
+    args = ap.parse_args()
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.batch % max(cfg.grad_accum, 1):
+        cfg = cfg.replace(grad_accum=1)
+    res = train_loop(cfg, steps=args.steps, batch=args.batch,
+                     seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,
+                     resume=args.resume, seed=args.seed, device=args.device)
+    print(f"done: {res['steps_done']} steps, "
+          f"{res['tokens_per_s']:.0f} tok/s, "
+          f"loss {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""Carry parameter and cache trees across from numpy arrays.
+"""Carry parameter, optimizer-state and cache trees across from numpy
+arrays.
 
 The reference's trees, turned to numpy (``jax.tree.map(np.asarray, ...)``),
 become the port's: the same nested dicts, with torch tensors on ``device``
@@ -33,6 +34,17 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(state: Any, device=None) -> Any:
+    """The reference's AdamW state (``m``, ``v``: parameter trees; ``step``:
+    an int32 scalar) -> the port's, ``step`` an int32 tensor on
+    ``device``."""
+    device = resolve_device(device)
+    return {"m": params_from_numpy(state["m"], device),
+            "v": params_from_numpy(state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
 
 
 def cache_from_numpy(tree: Any, device=None) -> Any:

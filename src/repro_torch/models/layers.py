@@ -1,9 +1,12 @@
 """Shared model building blocks, in torch.
 
 Plain functions over nested dicts of tensors, named as in the reference's
-parameter tree.  Prefill attention goes through the flash-attention kernel
-(``kernels/flash_attention``) unless ``attn_impl == "reference"``; the
-decode step is plain einsum attention over the cache, as in the reference.
+parameter tree.  Prefill and training attention go through the
+flash-attention kernel (``kernels/flash_attention``; with gradients its
+``FlashAttentionFunction``, the kernel's forward and the plain version's
+backward) unless ``attn_impl == "reference"``, which takes the reference's
+plain sdpa (``chunked_sdpa`` past ``attn_q_chunk``); the decode step is
+plain einsum attention over the cache, as in the reference.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ class Rules:
         if mapping:
             raise NotImplementedError(
                 "sharding rules need a device mesh, which the port does not "
-                "have yet (ROADMAP.md, queue A: LM training and launch)")
+                "have yet (ROADMAP.md, queue A: train/sharding.py)")
         self.mapping: Dict[str, Any] = {}
 
 

@@ -5,10 +5,14 @@ Recurrence (per channel c, state n):
     y_t = C_t . h_t + D * x_t
 with input-dependent dt (softplus), B, C from x_proj.
 
-Prefill runs the selective-scan kernel (``kernels/mamba_scan``) unless
-``ssm_impl == "reference"``, which takes the reference's chunked two-level
-scan in plain torch.  Decode is a single recurrence step on the carried
-(conv_state, h).
+Prefill and training (T > 1) run the selective-scan kernel
+(``kernels/mamba_scan``) unless ``ssm_impl == "reference"``, which takes
+the reference's chunked two-level scan in plain torch
+(``mamba_scan_chunked``, each chunk rematerialised under autograd, as the
+reference's ``jax.checkpoint`` of its chunk body).  With gradients the
+kernel route goes through ``MambaScanFunction``: the kernel's forward, the
+plain chunked scan's backward.  Decode is a single recurrence step on the
+carried (conv_state, h).
 """
 from __future__ import annotations
 
@@ -17,36 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.mamba_scan import mamba_scan
+from ..kernels.mamba_scan import mamba_scan, mamba_scan_chunked
 from .layers import Rules, dt
-
-
-def _ssm_chunk_scan(h0: torch.Tensor, dA: torch.Tensor, dBx: torch.Tensor,
-                    C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scan one chunk.  h0: [B, di, N]; dA, dBx: [B, T, di, N]; C: [B, T, N].
-    Returns (h_T, y [B, T, di])."""
-    h = h0
-    ys = []
-    for t in range(dA.shape[1]):
-        h = dA[:, t] * h + dBx[:, t]
-        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
-    return h, torch.stack(ys, dim=1)
-
-
-def _ssm_chunk_scan_fused(h0: torch.Tensor, delta: torch.Tensor,
-                          x: torch.Tensor, Bm: torch.Tensor, C: torch.Tensor,
-                          A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The same scan with the [B, di, N] outer products formed inside each
-    step from the per-step slices (delta/x [B, di], B/C [B, N])."""
-    h = h0
-    ys = []
-    for t in range(delta.shape[1]):
-        d_t = delta[:, t, :, None]
-        dA_t = torch.exp(d_t * A)
-        dBx_t = d_t * Bm[:, t, None, :] * x[:, t, :, None]
-        h = dA_t * h + dBx_t
-        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
-    return h, torch.stack(ys, dim=1)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -113,26 +89,14 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
         y, hT = mamba_scan(delta.to(kdt).contiguous(),
                            xconv.to(kdt).contiguous(),
                            B32.contiguous(), C32.contiguous(), A.contiguous(),
-                           h0, impl=cfg.ssm_impl)
+                           h0, impl=cfg.ssm_impl, chunk=cfg.ssm_chunk)
     elif cfg.ssm_impl != "reference":
         raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
     else:
-        # chunked two-level scan (zero-padded steps leave h unchanged)
-        delta32, x32 = delta.float(), xconv.float()
-        ch = min(cfg.ssm_chunk, T)
-        hT = h0
-        ys = []
-        for t0 in range(0, T, ch):
-            sl = slice(t0, t0 + ch)
-            dl, Bc, xck, Cc = delta32[:, sl], B32[:, sl], x32[:, sl], C32[:, sl]
-            if cfg.ssm_fused_ref:
-                hT, yc = _ssm_chunk_scan_fused(hT, dl, xck, Bc, Cc, A)
-            else:
-                dA = torch.exp(dl[..., None] * A)     # [B, ch, di, N]
-                dBx = dl[..., None] * Bc[:, :, None, :] * xck[..., None]
-                hT, yc = _ssm_chunk_scan(hT, dA, dBx, Cc)
-            ys.append(yc)
-        y = torch.cat(ys, dim=1)
+        # chunked two-level scan, each chunk rematerialised under autograd
+        y, hT = mamba_scan_chunked(delta, xconv, B32, C32, A, h0,
+                                   chunk=cfg.ssm_chunk,
+                                   fused=cfg.ssm_fused_ref)
 
     # xconv is already in the compute dtype (the reference rounds x32 back)
     y = y.to(cdt) + xconv * p["D"].to(cdt)

@@ -11,8 +11,11 @@ matmuls.  None of this is a kernel of the reference: it computes the block
 outside any Pallas call, so the port keeps it in plain torch.
 
 ``moe_block`` returns the Switch/GShard load-balancing loss beside the
-output.  The backbone does not add it up yet: serving has no use for it,
-and training (ROADMAP queue A item 7) will.
+output; training adds it up over the layers into the loss (``0.01 ·
+aux``), serving drops it.  Training routes as a prefill does: a group's
+slots past the capacity C are dropped, and gradients reach the router
+through the kept slots' gates and through the aux loss's mean router
+probabilities, as in the reference.
 """
 from __future__ import annotations
 

@@ -17,6 +17,7 @@ the reference: ``batch["vision"]`` holds precomputed patch embeddings
 
 Entry points:
   init_params / param_shapes / param_count
+  forward_train(params, batch, cfg)        -> (loss, {"ce", "aux"})
   forward_prefill(params, batch, cfg)      -> (logits, cache)
   decode_step(params, cache, batch, cfg)   -> (logits, cache)
   make_cache_shapes(cfg, B, S)             -> cache shapes (meta tensors)
@@ -31,9 +32,11 @@ attention cache is a ring: position p sits at slot p mod W, after a
 prefill too (the reference's prefill cache breaks that when the prompt is
 longer than W and not a multiple of it).
 
-The backbone returns ``(h, new_cache)``.  ``moe_block`` also returns its
-load-balancing loss; serving drops it, and the backbone will sum it when
-training is ported (ROADMAP queue A item 7).
+The backbone returns ``(h, new_cache, aux)``: ``aux`` sums the MoE
+layers' load-balancing losses, which ``forward_train`` adds to the loss and
+serving drops.  In training each period runs under
+``torch.utils.checkpoint`` when ``remat_policy == "full"``, and no cache is
+built: the decode path's in-place cache writes never meet autograd.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (NO_RULES, Rules, attn_block, dt, mlp_block, normal_init,
                      rms_norm, sdpa)
@@ -54,8 +58,8 @@ _HYBRID_ON_CUDA = (
     "its card path needs model sharding over 4 cards: one full-width "
     "period of jamba-1.5-large holds 4 MoE layers of 16 experts, 4 x 16 x "
     "3 x 8192 x 24576 x 2 B = 77 GB in bf16, which does not fit one 80 GB "
-    "card beside anything else (ROADMAP.md, queue A: 'LM families still to "
-    "port', the hybrid interleave)")
+    "card beside anything else (ROADMAP.md, queue A: jamba's 4-card path, "
+    "after train/sharding.py)")
 
 
 def check_supported(cfg, device) -> None:
@@ -281,8 +285,10 @@ def grow_cache(cache: Dict[str, Any], cfg, max_len: int) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, vision, cache,
                  cache_pos, mode):
-    """One layer at in-period position ``pos``.  Returns (h, new_cache)."""
+    """One layer at in-period position ``pos``.  Returns (h, new_cache,
+    aux): ``aux`` is the MoE layer's load-balancing loss, None elsewhere."""
     new_cache: Dict[str, Any] = {}
+    aux = None
     hin = rms_norm(h, sub["ln1"], cfg.norm_eps)
     if cfg.layer_kind(pos) == "attn":
         kv_cache = ((cache["k"], cache["v"])
@@ -329,11 +335,11 @@ def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, vision, cache,
     if cfg.d_ff > 0:
         hin2 = rms_norm(h, sub["ln2"], cfg.norm_eps)
         if cfg.ffn_kind(pos) == "moe":
-            out, _aux = moe_block(hin2, sub["moe"], cfg, rules)
+            out, aux = moe_block(hin2, sub["moe"], cfg, rules)
         else:
             out = mlp_block(hin2, sub["mlp"], cfg, rules)
         h = h + out
-    return h, new_cache
+    return h, new_cache, aux
 
 
 def _cross_with_cache(hx, xk, xv, p, cfg):
@@ -354,17 +360,40 @@ def _cross_with_cache(hx, xk, xv, p, cfg):
 # ---------------------------------------------------------------------------
 def backbone(params, h, cfg, rules: Rules, mode: str, q_pos, kv_pos,
              vision=None, cache=None, cache_pos: Optional[int] = None):
-    """h: [B, S, d] -> (h, new_cache).
+    """h: [B, S, d] -> (h, new_cache, aux).
 
+    mode 'train' builds no cache and returns the MoE layers' summed aux loss
+    (fp32); with ``remat_policy == "full"`` each period runs under
+    ``torch.utils.checkpoint``, the counterpart of the reference's
+    ``jax.checkpoint`` of its scan body: the backward keeps each period's
+    input and runs the period again, kernels included, before its backward.
+    A block leaf may be a stacked tensor or a list of per-layer tensors
+    (``train_step`` passes per-layer leaves that accumulate their own
+    gradients).
     mode 'prefill' stacks each layer's new cache along a leading layer dim.
     mode 'decode' updates ``cache`` IN PLACE, layer slice by layer slice: the
     counterpart of the reference's donated cache buffer, so a multi-GB cache
-    is never copied per token."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r}: the port runs prefill and decode "
-                         f"(training is not ported yet)")
+    is never copied per token.  Both return ``aux`` None."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown backbone mode {mode!r}")
     P_ = period(cfg)
     blocks = params["blocks"]
+    if mode == "train":
+        # one unbind a stacked leaf: its backward stacks the layers'
+        # gradients once, where indexing would add a full-size zero
+        # gradient a layer
+        blocks = _unbind(blocks)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n_periods(cfg)):
+            bp = {key: _index(blocks[key], i) for key in blocks}
+            args = (h, bp, cfg, rules, q_pos, kv_pos, vision)
+            if cfg.remat_policy == "full":
+                h, a = checkpoint(_train_period, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                h, a = _train_period(*args)
+            aux = aux + a
+        return h, None, aux
     stacked: Dict[str, Dict[str, torch.Tensor]] = {}
     for i in range(n_periods(cfg)):
         for pos in range(P_):
@@ -372,8 +401,8 @@ def backbone(params, h, cfg, rules: Rules, mode: str, q_pos, kv_pos,
             sub = _index(blocks[key], i)
             cc = ({n: t[i] for n, t in cache[key].items()}
                   if mode == "decode" else None)
-            h, nc = _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos,
-                                 vision, cc, cache_pos, mode)
+            h, nc, _ = _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos,
+                                    vision, cc, cache_pos, mode)
             if mode == "decode":
                 for name, new in nc.items():
                     if new is not cc[name]:   # attention wrote its view
@@ -385,7 +414,25 @@ def backbone(params, h, cfg, rules: Rules, mode: str, q_pos, kv_pos,
                     dst[name] = new.new_empty((n_periods(cfg),) + new.shape)
                 dst[name][i].copy_(new)
     new_cache = cache if mode == "decode" else (stacked or None)
-    return h, new_cache
+    return h, new_cache, None
+
+
+def _train_period(h, bp, cfg, rules, q_pos, kv_pos, vision):
+    """One period of layers in mode 'train' -> (h, the period's aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for pos in range(period(cfg)):
+        h, _, a = _apply_layer(h, bp[f"pos{pos}"], cfg, rules, pos, q_pos,
+                               kv_pos, vision, None, None, "train")
+        if a is not None:
+            aux = aux + a
+    return h, aux
+
+
+def _unbind(tree):
+    """Stacked leaves -> lists of per-layer views; lists stay as they are."""
+    if isinstance(tree, dict):
+        return {k: _unbind(v) for k, v in tree.items()}
+    return list(tree.unbind(0)) if isinstance(tree, torch.Tensor) else tree
 
 
 def _index(tree, i):
@@ -414,6 +461,31 @@ def _logits(params, h, cfg, rules: Rules):
     return h.to(cdt) @ params["head_w"].to(cdt)
 
 
+def forward_train(params, batch, cfg, rules: Rules = NO_RULES):
+    """-> (scalar loss, {"ce", "aux"}), differentiable in ``params``.
+
+    ``batch`` holds ``tokens`` [B, S] (audio: ``frames`` [B, T, d] and
+    ``labels`` [B, T]; a vlm: ``vision`` too).  The logits are fp32; ``ce``
+    is logsumexp minus the gold logit, averaged over the next tokens
+    (audio: over ``labels`` at every position); the loss is ``ce + 0.01 *
+    aux``, ``aux`` the MoE layers' summed load-balancing loss (0 without
+    MoE layers)."""
+    check_supported(cfg, params["head_w"].device)
+    x = _embed(params, batch, cfg, rules)
+    pos = torch.arange(x.shape[1], device=x.device)
+    h, _, aux = backbone(params, x, cfg, rules, "train", pos, pos,
+                         vision=batch.get("vision"))
+    logits = _logits(params, h, cfg, rules).float()
+    if cfg.family == "audio":
+        tgt, lg = batch["labels"], logits
+    else:
+        tgt, lg = batch["tokens"][:, 1:], logits[:, :-1]
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, tgt[..., None].long())[..., 0]
+    ce = (logz - gold).mean()
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
 def forward_prefill(params, batch, cfg, rules: Rules = NO_RULES):
     """Full forward over the prompt -> (last-position logits, cache).
 
@@ -423,8 +495,8 @@ def forward_prefill(params, batch, cfg, rules: Rules = NO_RULES):
     x = _embed(params, batch, cfg, rules)
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)
-    h, cache = backbone(params, x, cfg, rules, "prefill", pos, pos,
-                        vision=batch.get("vision"))
+    h, cache, _ = backbone(params, x, cfg, rules, "prefill", pos, pos,
+                           vision=batch.get("vision"))
     logits = _logits(params, h[:, -1:], cfg, rules)
     if cache is not None:
         cache["pos_idx"] = S
@@ -441,8 +513,8 @@ def decode_step(params, cache, batch, cfg, rules: Rules = NO_RULES):
     x = _embed(params, batch, cfg, rules)                # [B, 1, d]
     pos_idx = int(cache["pos_idx"])
     q_pos = torch.tensor([pos_idx], device=x.device)
-    h, new_cache = backbone(params, x, cfg, rules, "decode", q_pos, q_pos,
-                            cache=cache, cache_pos=pos_idx)
+    h, new_cache, _ = backbone(params, x, cfg, rules, "decode", q_pos, q_pos,
+                               cache=cache, cache_pos=pos_idx)
     logits = _logits(params, h, cfg, rules)
     new_cache = dict(new_cache)
     new_cache["pos_idx"] = pos_idx + 1

@@ -1,0 +1,123 @@
+"""AdamW (own implementation) with the reference's dtype policy and its
+warmup + cosine schedule (``repro/train/optimizer.py``).
+
+The update math runs in fp32; moments are stored in ``opt_state_dtype``
+and parameters in ``param_dtype``; leaves with fewer than 2 dims (norms,
+biases) take no weight decay.  ``adamw_update`` writes the new parameters
+and moments INTO the given tensors under ``torch.no_grad()``: the
+counterpart of the reference's donated params and opt state (its jitted
+step reuses their buffers), so no second copy of the state exists.  Call
+it only once no autograd graph holds the parameters, that is after the
+last microbatch's backward.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Iterator, List
+
+import torch
+
+from ..models.layers import dt
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    min_lr_frac: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def _as_step(step, device=None) -> torch.Tensor:
+    return torch.as_tensor(step, dtype=torch.int32, device=device)
+
+
+def lr_at(step, cfg: OptConfig) -> torch.Tensor:
+    """The learning rate at ``step`` (an int or an int32 tensor), as an fp32
+    tensor on the step's device, computed as the reference computes it in
+    fp32: linear warmup to ``lr``, then a cosine down to ``min_lr_frac``."""
+    step = _as_step(step)
+    warm = cfg.lr * (step + 1).float() / max(cfg.warmup_steps, 1)
+    t = torch.clamp((step - cfg.warmup_steps).float()
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_frac * cfg.lr + (1 - cfg.min_lr_frac) * cfg.lr \
+        * 0.5 * (1 + torch.cos(math.pi * t))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves of a nested dict, in the reference's order (jax flattens
+    a dict by its sorted keys)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def init_opt_state(params, model_cfg) -> Dict[str, Any]:
+    """Zero moments in ``opt_state_dtype`` beside each parameter, and the
+    step as an int32 tensor on the parameters' device."""
+    odt = dt(model_cfg.opt_state_dtype)
+    zeros = lambda p: torch.zeros(p.shape, dtype=odt, device=p.device)
+    device = tree_leaves(params)[0].device
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32."""
+    return torch.sqrt(torch.stack(
+        [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    ).sum())
+
+
+def _slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
+    """A stacked leaf by its leading dim, any other whole: the elementwise
+    update then holds fp32 temporaries of one layer, not of the stack."""
+    return iter(t.unbind(0)) if t.dim() >= 3 else iter((t,))
+
+
+@torch.no_grad()
+def adamw_update(grads, params, opt_state, ocfg: OptConfig, model_cfg
+                 ) -> Dict[str, torch.Tensor]:
+    """One AdamW step, IN PLACE on ``params`` and ``opt_state`` (see the
+    module docstring).  Returns the stats ``{"lr", "grad_norm"}`` as 0-dim
+    tensors."""
+    step = opt_state["step"]
+    lr = lr_at(step, ocfg)
+    gnorm = global_norm(grads)
+    scale = (torch.clamp(ocfg.grad_clip / (gnorm + 1e-9), max=1.0)
+             if ocfg.grad_clip > 0 else torch.ones((), device=gnorm.device))
+    b1, b2 = ocfg.b1, ocfg.b2
+    bc1 = 1 - torch.pow(b1, step.float() + 1)
+    bc2 = 1 - torch.pow(b2, step.float() + 1)
+    leaves = zip(tree_leaves(params), tree_leaves(grads),
+                 tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]))
+    for P, G, M, V in leaves:
+        wd = ocfg.weight_decay if P.dim() >= 2 else 0.0   # none on norms
+        for p, g, m, v in zip(_slices(P), _slices(G), _slices(M),
+                              _slices(V)):
+            g32 = g.float() * scale
+            m32 = b1 * m.float() + (1 - b1) * g32
+            v32 = b2 * v.float() + (1 - b2) * g32 * g32
+            mh = m32 / bc1
+            vh = v32 / bc2
+            p32 = p.float()
+            upd = lr * (mh / (torch.sqrt(vh) + ocfg.eps) + wd * p32)
+            p.copy_(p32 - upd)
+            m.copy_(m32)
+            v.copy_(v32)
+    step.add_(1)
+    return {"lr": lr, "grad_norm": gnorm}

@@ -11,13 +11,18 @@ plain torch version, and its ``reference`` route.  Tolerances: compute in
 float32 within rtol 1e-4 / atol 1e-4 (fp32 sums in other orders over a few
 layers); bfloat16 within rtol 5e-2 / atol 5e-2 (the frameworks round
 matmul outputs to bf16 at different points); greedy tokens identical at
-float32.
+float32.  Training (``check_forward_train``): the loss within rtol 1e-5
+and each gradient leaf within 1e-4 of its largest reference value plus
+rtol 1e-3 (fp32 sums in other orders, forward and backward, over a few
+layers).
 
 A vlm's cross-attention gate is initialised to zero, and ``tanh(0) * out``
 would hide the whole branch from every check, so ``params`` sets each
 ``xattn.gate`` to a nonzero value drawn from a numpy seed, the same in the
 reference's tree and the port's.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +35,10 @@ from repro.models import transformer as ref_tf
 from repro.train.serve_step import generate as ref_generate
 from repro_torch import configs
 from repro_torch.kernels import launch_counts, reset_launches
+from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.mamba_scan import mamba_scan_ref
+from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.launch.serve import BatchedServer, Request
 from repro_torch.models import transformer as tf
 from repro_torch.models.convert import params_from_numpy
@@ -232,3 +241,98 @@ def check_server(arch):
     assert [r.out_tokens for r in done] == [r.out_tokens for r in ref_reqs]
     assert [len(r.out_tokens) for r in done] == [6, 5, 6, 5, 6]
     assert server.stats["prefills"] == 3 and server.stats["decode_steps"] == 15
+
+
+# ------------------------------------------------------------------ training
+def train_batches(cfg, B, S, seed=3):
+    """``batches`` plus, for audio, ``labels`` [B, S] from numpy."""
+    ref, port = batches(cfg, B, S, seed)
+    if cfg.family == "audio":
+        lab = np.random.default_rng(seed + 2).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)
+        ref["labels"] = jnp.asarray(lab)
+        port["labels"] = torch.from_numpy(lab).long()
+    return ref, port
+
+
+def grad_tree(tree):
+    if isinstance(tree, dict):
+        return {k: grad_tree(v) for k, v in tree.items()}
+    return tree.grad if tree.grad is not None else torch.zeros_like(tree)
+
+
+def close_grads(got, want, path=""):
+    """Leaf by leaf: |got - want| <= 1e-4 * max|want| + 1e-3 * |want|."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            close_grads(got[k], want[k], f"{path}.{k}")
+        return
+    g, w = as_np(got), as_np(want)
+    assert g.shape == w.shape, path
+    np.testing.assert_allclose(g, w, rtol=1e-3,
+                               atol=1e-4 * float(np.abs(w).max()) + 1e-12,
+                               err_msg=path)
+
+
+@functools.lru_cache(maxsize=None)
+def reference_train(arch, **kw):
+    """(port cfg, params as numpy, port batch, reference loss, metrics and
+    gradients): ``jax.value_and_grad`` of the reference's
+    ``forward_train`` at fp32 on its plain attention, batch 2 x 32;
+    ``kw``: config fields set in both packages."""
+    ref_cfg, cfg = cfgs(arch, compute_dtype="float32", **kw)
+    ref_cfg = ref_cfg.replace(attn_impl="reference")
+    ref_p, _ = params(ref_cfg)
+    ref_b, b = train_batches(cfg, 2, 32)
+    (loss, mets), grads = jax.value_and_grad(
+        lambda pp: ref_tf.forward_train(pp, ref_b, ref_cfg), has_aux=True)(
+            ref_p)
+    return cfg, jax.tree.map(np.asarray, ref_p), b, loss, mets, grads
+
+
+def standin_kernels(monkeypatch):
+    """The plain versions in place of the CUDA launches (``attn_impl`` /
+    ``ssm_impl = "cuda"`` then runs the card's Functions on the CPU), each
+    call counted."""
+    counts = {"flash": 0, "scan": 0}
+
+    def flash(*a, **kw):
+        counts["flash"] += 1
+        return flash_attention_ref(*a, **kw)
+
+    def scan(*a):
+        counts["scan"] += 1
+        return mamba_scan_ref(*a)
+    monkeypatch.setattr(flash_ops, "flash_attention_cuda", flash)
+    monkeypatch.setattr(scan_ops, "mamba_scan_cuda", scan)
+    return counts
+
+
+def check_forward_train(arch, route, monkeypatch, **kw):
+    """The port's ``forward_train`` loss and every gradient leaf against
+    the reference's, on route ``route`` ('cuda': the kernels' Functions
+    over stand-in kernels, each launched once a layer forward and once in
+    the period's recompute; vision counts as a layer's second attention).
+    """
+    counts = standin_kernels(monkeypatch)
+    cfg, p_np, b, ref_loss, ref_m, ref_g = reference_train(arch, **kw)
+    cfg = cfg.replace(attn_impl=route, ssm_impl=route)
+    p = params_from_numpy(p_np, device="cpu")
+    p = jax.tree.map(lambda t: t.requires_grad_(True), p)
+    loss, mets = tf.forward_train(p, b, cfg)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)
+    for k in ("ce", "aux"):
+        np.testing.assert_allclose(mets[k].item(), float(ref_m[k]),
+                                   rtol=1e-5, atol=1e-7)
+    close_grads(grad_tree(p), ref_g)
+    layers = range(cfg.n_layers)
+    n_flash = sum(cfg.layer_kind(i) == "attn" for i in layers)
+    if "vision" in b:
+        n_flash += sum(cfg.has_cross_attn(i) for i in layers)
+    n_ssm = sum(cfg.layer_kind(i) == "mamba" for i in layers)
+    on = route == "cuda"
+    assert counts["flash"] == (2 * n_flash if on else 0)
+    assert counts["scan"] == (2 * n_ssm if on else 0)
+    return mets

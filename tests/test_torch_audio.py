@@ -43,8 +43,8 @@ def test_hidden_state_at_every_position_matches_reference(dtype):
         run_cfg = cfg.replace(attn_impl=impl)
         xt = tf._embed(p, b, run_cfg, tf.NO_RULES)
         post = torch.arange(32)
-        got, _ = tf.backbone(p, xt, run_cfg, tf.NO_RULES, "prefill", post,
-                             post)
+        got, _, _ = tf.backbone(p, xt, run_cfg, tf.NO_RULES, "prefill",
+                                post, post)
         assert got.shape == (2, 32, cfg.d_model)
         assert got.dtype == getattr(torch, dtype)
         np.testing.assert_allclose(as_np(got), as_np(want), **tol)

@@ -877,7 +877,8 @@ def test_hubert_smoke_encoder_on_the_card_matches_torch_cpu(dev):
         x = tf._embed(params, {"frames": frames.to(device)}, cfg, tf.NO_RULES)
         pos = torch.arange(130, device=device)
         reset_launches()
-        h, _ = tf.backbone(params, x, cfg, tf.NO_RULES, "prefill", pos, pos)
+        h, _, _ = tf.backbone(params, x, cfg, tf.NO_RULES, "prefill", pos,
+                              pos)
         runs.append(h.cpu())
     assert launch_counts()["flash_attention"] == cfg.n_layers
     torch.testing.assert_close(runs[1], runs[0], rtol=1e-4, atol=1e-4)
@@ -887,3 +888,105 @@ def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------- training
+# The kernels' Functions on the card: the forward is the kernel (one launch
+# a call), the gradients are the plain version's on the same inputs, so
+# they equal the plain route's gradients up to the order of fp32 sums
+# (rtol 1e-4 / atol 1e-5 in fp32; bf16 inputs: 2e-2).
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,softcap", [(True, 0, 0.0),
+                                                   (True, 48, 10.0),
+                                                   (False, 0, 0.0)])
+def test_train_flash_function_on_the_card(dev, dtype, causal, window,
+                                          softcap):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    dt = getattr(torch, dtype)
+    B, S, Kh, G, hd = 2, 200, 2, 2, 80
+    arrays = [RNG.normal(size=s) for s in ((B, S, Kh, G, hd), (B, S, Kh, hd),
+                                           (B, S, Kh, hd))]
+    w = torch.from_numpy(RNG.normal(size=(B, S, Kh, G, hd))).to(dev, dt)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    grads = []
+    for impl in ("auto", "reference"):
+        qkv = [torch.from_numpy(a).to(dev, dt).requires_grad_(True)
+               for a in arrays]
+        reset_launches()
+        out = flash_attention(*qkv, impl=impl, **kw)
+        (out.float() * w.float()).sum().backward()
+        assert launch_counts()["flash_attention"] == (impl == "auto")
+        grads.append([t.grad for t in qkv])
+    tol = (1e-4, 1e-5) if dtype == "float32" else (2e-2, 2e-2)
+    for got, want in zip(*grads):
+        assert got.dtype == dt
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                                   atol=tol[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_scan_function_on_the_card(dev, dtype):
+    """Gradients of delta, x, B, C, A and h0 through the kernel's Function
+    against the plain chunked scan's on the card."""
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_chunked
+    arrays = _scan_args(dev, 2, 100, 48, 16, dtype)
+    wy = torch.from_numpy(RNG.normal(size=(2, 100, 48))).to(dev,
+                                                            torch.float32)
+    grads, launched = [], []
+    for fn in (lambda *a: mamba_scan(*a, chunk=32),
+               lambda *a: mamba_scan_chunked(*a, chunk=32)):
+        ts = [t.detach().clone().requires_grad_(True) for t in arrays]
+        reset_launches()
+        y, hT = fn(*ts)
+        ((y * wy).sum() + hT.sum()).backward()
+        grads.append([t.grad for t in ts])
+        launched.append(launch_counts()["mamba_scan"])
+    assert launched == [1, 0]
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "falcon-mamba-7b"])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """A 2-layer smoke train step (grad_accum 2, fp32 compute) through the
+    kernels' Functions on the card against the plain versions on the CPU,
+    from the same weights: the loss within rtol 1e-4 and the accumulated
+    gradients AdamW receives, leaf by leaf, within 1e-4 of the leaf's
+    largest value plus rtol 1e-3 (fp32 sums in other orders).  The
+    updated parameters are not compared: Adam's first step moves a weight
+    by about lr whatever its gradient's size, so a gradient near eps
+    whose rounding differs between the devices moves it by a few percent
+    of lr (one wk element of 8192 moved by 2.8% of lr on an H100)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import (OptConfig, init_opt_state,
+                                             tree_leaves, tree_map)
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_config(arch, smoke=True).replace(compute_dtype="float32",
+                                               grad_accum=2)
+    ocfg = OptConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (4, 64)))
+    kernel = "flash_attention" if arch == "stablelm-3b" else "mamba_scan"
+    out = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device),
+                     tf.init_params(cfg, seed=0, device="cpu"))
+        opt = init_opt_state(p, cfg)
+        seen = []
+
+        def capture(g):
+            seen.append([t.cpu() for t in tree_leaves(g)])
+            return g
+        reset_launches()
+        _, _, m = make_train_step(cfg, ocfg, grad_transform=capture)(
+            p, opt, {"tokens": toks.to(device)})
+        # each layer, each microbatch: the forward and the remat recompute
+        want = 2 * cfg.n_layers * 2 if device != "cpu" else 0
+        assert launch_counts()[kernel] == want
+        out.append((float(m["loss"]), seen[0]))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-4)
+    for a, b in zip(out[1][1], out[0][1]):
+        torch.testing.assert_close(
+            a, b, rtol=1e-3, atol=1e-4 * float(b.abs().max()) + 1e-12)
