@@ -108,7 +108,20 @@ Phases (any failure raises and the script exits non-zero):
    the stablelm smoke config: 2 steps, a checkpoint, 2 resumed steps
    equal to 4 straight ones.  ``--profile``: one stablelm-3b train step
    under the profiler.
-6. The ``kernels`` JSON line, the card line and, last,
+6. LM sharded path (``train/sharding.py``, DTensor over a ``DeviceMesh``):
+   a world of one ``nccl`` rank and a 1x1 mesh with the real
+   ``make_rules``.  stablelm-3b whole, two steps of phase 5's batch (8 x
+   2048 in 4 microbatches, seed 0) through ``sharded_train_step`` against
+   two of the unsharded ``make_train_step`` from the same seed: losses and
+   global grad norms within SHARD_RTOL (bit-identity reported), step ms of
+   both, flash launched twice a layer a microbatch.  Then a 4 x 2048
+   prefill (``prefill`` profile) and 4 decode steps (``decode`` profile)
+   through ``sharded_serve_steps`` against the unsharded serve steps on
+   the same weights, logits within SHARD_RTOL.  The flash launches are
+   counted from 0 just before and added to the kernels line's.  Four ranks
+   on the one card are not run: gloo's collectives on CUDA tensors do not
+   carry DTensor there (PERF.md).
+7. The ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; exits non-zero without one, and without the repository's
@@ -2381,6 +2394,177 @@ def phase_train(dev: torch.device, profile: bool) -> dict:
     return {"flash_attention": (flash, flash_fn), "mamba_scan": (scan, scan_fn)}
 
 
+# ---------------------------------------------------------------------------
+#  Phase 6: sharded training and serving
+# ---------------------------------------------------------------------------
+#: the sharded step against the unsharded one on a 1x1 nccl mesh:
+#: stablelm-3b whole, phase 5's batch (8 x 2048 in 4 microbatches), 2 steps
+SHARD_TRAIN = dict(batch=8, grad_accum=4, steps=2)
+#: loss and global grad norm of the two steps within this relative gap (a
+#: 1x1 mesh runs every op on the whole tensor, as the unsharded step does)
+SHARD_RTOL = 1e-6
+#: the serving check: one wave of 4 x 2048 prompts, then decode steps
+SHARD_SERVE = dict(batch=4, prompt_len=2048, decode_steps=4)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _two_steps(step, params, opt, batches):
+    """(losses, grad norms, step seconds) of ``step`` over ``batches``."""
+    losses, norms, secs = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, secs
+
+
+@torch.no_grad()
+def _serve_logits(prefill, decode, params, cfg, toks, steps):
+    """Logits of a prefill of all but ``steps`` tokens, then of a decode
+    step a token, whole, on the host."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.sharding import full
+    S = toks.shape[1]
+    lg, cache = prefill(params, {"tokens": toks[:, :S - steps]})
+    out = [full(lg).float().cpu()]
+    cache = tf.grow_cache(cache, cfg, S)
+    for t in range(S - steps, S):
+        lg, cache = decode(params, cache, {"tokens": toks[:, t:t + 1]})
+        out.append(full(lg).float().cpu())
+    del cache
+    return out
+
+
+def phase_sharded_lm(dev: torch.device, backend: str = "nccl") -> int:
+    """Phase 6: ``sharded_train_step`` and ``sharded_serve_steps`` on a 1x1
+    ``nccl`` mesh with the real ``make_rules`` (profiles train, then
+    prefill and decode), stablelm-3b whole: two train steps of phase 5's
+    batch against the unsharded ``make_train_step`` from the same seed
+    (loss and global grad norm within SHARD_RTOL, bit-identity reported,
+    step ms of both), then a 4 x 2048 prefill and decode steps against the
+    unsharded serve steps on the same weights.  Returns the flash launches
+    of the sharded runs, counted from 0 just before them."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import (InputPipeline, PipelineConfig,
+                                  make_lm_batch_fn)
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+    from repro_torch.launch.train import build_state, sharded_setup, to_device
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import OptConfig, tree_map
+    from repro_torch.train.serve_step import (make_serve_steps,
+                                              sharded_serve_steps)
+    from repro_torch.train.sharding import local, make_rules
+    from repro_torch.train.train_step import (make_train_step,
+                                              sharded_train_step)
+    from repro_torch.launch.specs import limit_specs_tree
+    t0 = time.perf_counter()
+    spec = SHARD_TRAIN
+    cfg = get_config("stablelm-3b").replace(grad_accum=spec["grad_accum"])
+    ocfg = OptConfig(total_steps=10, warmup_steps=1)
+    blocks = iter(InputPipeline(PipelineConfig(
+        seq_len=TRAIN_SEQ, global_batch=spec["batch"],
+        vocab_size=cfg.vocab_size, docs_per_window=max(spec["batch"] * 16,
+                                                      512), seed=0)))
+    batches = [to_device(make_lm_batch_fn(cfg)(next(blocks)), dev)
+               for _ in range(spec["steps"])]
+    backend = init_distributed(backend, dev.type)
+    mesh = make_host_mesh(1, 1, device=dev.type)
+    log(f"stablelm-3b sharded on a 1x1 {backend} mesh {mesh} (world "
+        f"{dist.get_world_size()}): {spec['steps']} steps of "
+        f"{spec['batch']} x {TRAIN_SEQ} in {spec['grad_accum']} "
+        f"microbatches; card: {card_line()}")
+    try:
+        params, opt = build_state(cfg, 0, dev)
+        plain = _two_steps(make_train_step(cfg, ocfg), params, opt, batches)
+        del params, opt
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        scfg, rules, p_specs, b_specs = sharded_setup(
+            cfg, mesh, spec["batch"], TRAIN_SEQ)
+        params, opt = build_state(scfg, 0, dev, mesh, p_specs)
+        reset_launches()
+        sharded = _two_steps(sharded_train_step(scfg, ocfg, rules, p_specs,
+                                                b_specs, mesh),
+                             params, opt, batches)
+        torch.cuda.synchronize()
+        launches = launch_counts()["flash_attention"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del opt
+        torch.cuda.empty_cache()
+        per_step = cfg.n_layers * cfg.grad_accum * 2
+        gaps = [_rel(a, b) for a, b in zip(sharded[0] + sharded[1],
+                                           plain[0] + plain[1])]
+        same = sharded[0] == plain[0] and sharded[1] == plain[1]
+        log(f"  train: unsharded losses {plain[0]} grad norms {plain[1]} "
+            f"step ms {[round(x * 1e3, 1) for x in plain[2]]}; sharded "
+            f"losses {sharded[0]} grad norms {sharded[1]} step ms "
+            f"{[round(x * 1e3, 1) for x in sharded[2]]} (difference on "
+            f"the second step: {(sharded[2][-1] - plain[2][-1]) * 1e3:+.1f}"
+            f" ms, not attributed); max rel gap {max(gaps):.3g} (tolerance "
+            f"{SHARD_RTOL}); "
+            f"{'bit-identical' if same else 'not bit-identical'}; flash "
+            f"launches {launches} ({per_step} a step); peak "
+            f"{peak:.1f} GiB; rules {rules.mapping}")
+        if max(gaps) > SHARD_RTOL:
+            raise AssertionError(f"sharded train step: gap {max(gaps):.3g} "
+                                 f"to the unsharded step")
+        if launches != per_step * spec["steps"]:
+            raise AssertionError(f"sharded train step: {launches} flash "
+                                 f"launches, expected {per_step} a step")
+
+        sv = SHARD_SERVE
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            2, cfg.vocab_size, (sv["batch"], sv["prompt_len"]
+                                + sv["decode_steps"]))).to(dev)
+        whole = tree_map(local, params)           # the same memory
+        want = _serve_logits(*make_serve_steps(scfg), whole, scfg, toks,
+                             sv["decode_steps"])
+        pre_rules = make_rules(mesh, "prefill", scfg)
+        dec_rules = make_rules(mesh, "decode", scfg)
+        specs = limit_specs_tree(tf.param_specs(scfg, dec_rules),
+                                 tf.param_shapes(scfg), mesh)
+        total = toks.shape[1]
+        prefill = sharded_serve_steps(scfg, pre_rules, specs, mesh,
+                                      sv["batch"], total)[0]
+        decode = sharded_serve_steps(scfg, dec_rules, specs, mesh,
+                                     sv["batch"], total)[1]
+        before = launch_counts()["flash_attention"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = _serve_logits(prefill, decode, params, scfg, toks,
+                            sv["decode_steps"])
+        serve_s = time.perf_counter() - t
+        served = launch_counts()["flash_attention"] - before
+        gaps = [float((g - w).abs().max() / w.abs().max())
+                for g, w in zip(got, want)]
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        log(f"  serve: a {sv['batch']} x {sv['prompt_len']} prefill and "
+            f"{sv['decode_steps']} decode steps, sharded against unsharded "
+            f"on the same weights: max rel logit gap {max(gaps):.3g} "
+            f"(tolerance {SHARD_RTOL}); "
+            f"{'bit-identical' if same else 'not bit-identical'}; "
+            f"{serve_s:.2f}s; flash launches {served} "
+            f"({cfg.n_layers} a prefill, none in decode)")
+        if max(gaps) > SHARD_RTOL or served != cfg.n_layers:
+            raise AssertionError(f"sharded serving: gap {max(gaps):.3g}, "
+                                 f"{served} flash launches")
+        del params, whole
+        torch.cuda.empty_cache()
+        log(f"sharded phase wall: {time.perf_counter() - t0:.1f}s")
+        return launches + served
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2492,7 +2676,13 @@ def main() -> int:
         launches[name] += n
         measured[name].update({f"train_{k}": v for k, v in fn.items()})
 
-    # ---- phase 6: result lines
+    # ---- phase 6: sharded training and serving on a 1x1 nccl mesh
+    log(f"LM sharded path (DTensor over a DeviceMesh, sequences of "
+        f"{TRAIN_SEQ}):")
+    sharded_lm = phase_sharded_lm(gen.device)
+    launches["flash_attention"] += sharded_lm
+
+    # ---- phase 7: result lines
     sources = {"hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
                               "src/repro/kernels/hash_join/kernel.py:68"),
                "radix_groupby": ("src/repro_torch/csrc/radix_groupby.cu",
@@ -2518,6 +2708,12 @@ def main() -> int:
                                  "from torch.profiler; other_tables: "
                                  "customer, supplier and date")
         row.update({k: v for k, v in m.items() if k.startswith("train_")})
+        if name == "flash_attention":
+            row["sharded_launches"] = sharded_lm
+            row["sharded_note"] = (
+                "launches include the sharded phase's: stablelm-3b on a 1x1 "
+                "nccl mesh, 2 train steps (a launch a layer a microbatch, "
+                "forward and remat recompute) and one 4 x 2048 prefill")
         if name in trained:
             row["train_note"] = (
                 f"launches include {trained[name][0]} from training (two "

@@ -10,6 +10,13 @@ plain torch versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
       --smoke --device cpu --requests 4 --prompt-len 32 --max-new 8
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --arch stablelm-3b --smoke --device cpu --mesh data=2,model=2
+
+``--mesh`` serves through ``sharded_serve_steps`` with the decode
+profile's rules (``nccl`` on the card, ``gloo`` on the CPU unless
+``--dist-backend`` names one; under ``nccl`` a world larger than the
+visible cards raises).
 """
 from __future__ import annotations
 
@@ -23,9 +30,9 @@ import torch
 
 from ..configs import ARCH_IDS, get_config
 from ..models.layers import NO_RULES, resolve_device
-from ..models.transformer import (check_supported, decode_step,
-                                  forward_prefill, grow_cache, init_params)
-from ..train.serve_step import sample_token
+from ..models.transformer import check_supported, grow_cache, init_params
+from ..train.serve_step import make_serve_steps, sample_token
+from ..train.sharding import full
 
 
 @dataclass
@@ -50,7 +57,7 @@ class BatchedServer:
 
     def __init__(self, cfg, params=None, batch: int = 8, rules=NO_RULES,
                  temperature: float = 0.0, seed: int = 0,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None, mesh=None):
         self.cfg = cfg
         self.rules = rules
         self.batch = batch
@@ -59,8 +66,32 @@ class BatchedServer:
         check_supported(cfg, self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        place = None
+        if mesh is not None:
+            # the decode profile's rules and layout over the mesh; every
+            # rank serves the same requests
+            from ..train.serve_step import sharded_serve_steps
+            from ..train.sharding import distribute, make_rules
+            from .specs import limit_specs_tree
+            from ..models.transformer import param_shapes, param_specs
+            if not rules.mapping:
+                self.rules = make_rules(mesh, "decode", cfg)
+            specs = limit_specs_tree(param_specs(cfg, self.rules),
+                                     param_shapes(cfg), mesh)
+
+            def place(path, x):
+                spec = specs
+                for part in path.split("."):
+                    spec = spec[part]
+                return distribute(x, mesh, spec)
+            # the cache's specs do not depend on its length
+            self._prefill, self._decode = sharded_serve_steps(
+                cfg, self.rules, specs, mesh, batch, 0)
+        else:
+            self._prefill, self._decode = make_serve_steps(cfg, rules)
         if params is None:
-            params = init_params(cfg, seed=0, device=self.device)
+            params = init_params(cfg, seed=0, device=self.device,
+                                 place=place)
         elif params["head_w"].device != self.device:
             raise ValueError(f"params are on {params['head_w'].device}, the "
                              f"server on {self.device}")
@@ -77,20 +108,20 @@ class BatchedServer:
         prompts = np.stack([r.prompt for r in requests])
         max_new = max(r.max_new for r in requests)
         tokens = torch.tensor(prompts, dtype=torch.long, device=self.device)
-        logits, cache = forward_prefill(self.params, {"tokens": tokens},
-                                        self.cfg, self.rules)
+        logits, cache = self._prefill(self.params, {"tokens": tokens})
         cache = grow_cache(cache, self.cfg, prompts.shape[1] + max_new)
         self.stats["prefills"] += 1
-        tok = sample_token(logits, self.temperature, self.generator)
+        tok = sample_token(full(logits), self.temperature, self.generator)
         for r, t in zip(requests, tok[:, 0].tolist()):
             r.out_tokens.append(t)
         t1 = time.perf_counter()
         self.stats["prefill_s"] += t1 - t0
         for _ in range(max_new - 1):
-            logits, cache = decode_step(self.params, cache, {"tokens": tok},
-                                        self.cfg, self.rules)
+            logits, cache = self._decode(self.params, cache,
+                                         {"tokens": tok})
             self.stats["decode_steps"] += 1
-            tok = sample_token(logits, self.temperature, self.generator)
+            tok = sample_token(full(logits), self.temperature,
+                               self.generator)
             for r, t in zip(requests, tok[:, 0].tolist()):
                 if len(r.out_tokens) < r.max_new:
                     r.out_tokens.append(t)
@@ -131,22 +162,43 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--mesh", default=None,
+                    help="shard over a mesh of the torchrun ranks: "
+                         "data=D,model=M (and pod=P)")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="process group backend with --mesh (default: nccl "
+                         "on the card, gloo on the CPU)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.is_encoder:
         raise SystemExit(f"{args.arch} is encoder-only: no decode step")
-    server = BatchedServer(cfg, batch=args.batch,
-                           temperature=args.temperature, device=args.device)
-    reqs = make_requests(cfg, args.requests, args.prompt_len, args.max_new)
-    t0 = time.perf_counter()
-    done = server.run(reqs)
-    wall = time.perf_counter() - t0
-    n_tok = sum(len(r.out_tokens) for r in done)
-    print(f"served {len(done)} requests, {n_tok} tokens in {wall:.2f}s "
-          f"({n_tok / wall:.1f} tok/s) on {server.device}; "
-          f"prefills={server.stats['prefills']:.0f} "
-          f"decode_steps={server.stats['decode_steps']:.0f}")
+    mesh = None
+    if args.mesh:
+        import torch.distributed as dist
+        from .mesh import init_distributed, make_mesh, parse_mesh
+        sizes = parse_mesh(args.mesh)
+        device = str(resolve_device(args.device))
+        init_distributed(args.dist_backend, device)
+        mesh = make_mesh(tuple(sizes.values()), tuple(sizes), device)
+    try:
+        server = BatchedServer(cfg, batch=args.batch,
+                               temperature=args.temperature,
+                               device=args.device, mesh=mesh)
+        reqs = make_requests(cfg, args.requests, args.prompt_len,
+                             args.max_new)
+        t0 = time.perf_counter()
+        done = server.run(reqs)
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(r.out_tokens) for r in done)
+        if mesh is None or dist.get_rank() == 0:
+            print(f"served {len(done)} requests, {n_tok} tokens in "
+                  f"{wall:.2f}s ({n_tok / wall:.1f} tok/s) on "
+                  f"{server.device}; prefills={server.stats['prefills']:.0f}"
+                  f" decode_steps={server.stats['decode_steps']:.0f}")
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -7,14 +7,25 @@ flash-attention kernel (``kernels/flash_attention``; with gradients its
 backward) unless ``attn_impl == "reference"``, which takes the reference's
 plain sdpa (``chunked_sdpa`` past ``attn_q_chunk``); the decode step is
 plain einsum attention over the cache, as in the reference.
+
+Sharding is injected through ``Rules`` (logical axis -> mesh axis), as in
+the reference: on plain tensors, or with the empty mapping, every
+constraint is a no-op; with DTensor parameters the same functions run on
+DTensors, ``Rules.cons`` redistributing where the reference constrains,
+and the kernels run on each rank's shards (``on_shards``).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
+                                      Shard)
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.flash_attention import flash_attention
 
@@ -23,16 +34,100 @@ from ..kernels.flash_attention import flash_attention
 #  Sharding rules
 # ---------------------------------------------------------------------------
 class Rules:
-    """The reference maps logical axis names to mesh axes and constrains
-    activations with them.  The port runs on one card, so only the empty
-    mapping exists and nothing is constrained."""
+    """Maps logical axis names to mesh axis names (or None).  With an empty
+    mapping, or on a plain tensor, every constraint is a no-op
+    (single-device paths).  On a DTensor, ``cons`` is the counterpart of
+    the reference's ``with_sharding_constraint``: ``x.redistribute`` to the
+    spec's placements on ``mesh`` (the DTensor's own mesh when None), each
+    mesh axis dropped from a dim it does not divide."""
 
-    def __init__(self, mapping: Optional[Dict[str, Any]] = None):
-        if mapping:
-            raise NotImplementedError(
-                "sharding rules need a device mesh, which the port does not "
-                "have yet (ROADMAP.md, queue A: train/sharding.py)")
-        self.mapping: Dict[str, Any] = {}
+    def __init__(self, mapping: Optional[Dict[str, Any]] = None, mesh=None):
+        self.mapping: Dict[str, Any] = dict(mapping or {})
+        self.mesh = mesh
+
+    def spec(self, *axes: Optional[str]) -> Tuple[Any, ...]:
+        """One entry a tensor dim, as the reference's ``P(...)``."""
+        return tuple(self.mapping.get(a) if a else None for a in axes)
+
+    def placements(self, x: torch.Tensor, *axes: Optional[str]):
+        """The DTensor placements of ``spec(*axes)`` for ``x`` on the
+        rules' mesh (``x``'s own when None), limited to the dims of ``x``
+        each axis divides; None for a plain tensor."""
+        if not isinstance(x, DTensor):
+            return None
+        from ..train.sharding import spec_placements
+        mesh = self.mesh if self.mesh is not None else x.device_mesh
+        return spec_placements(self.spec(*axes), x.shape, mesh)
+
+    def cons(self, x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+        if not self.mapping or not isinstance(x, DTensor):
+            return x
+        plc = self.placements(x, *axes)
+        if tuple(x.placements) == plc:
+            return x
+        return x.redistribute(x.device_mesh, plc)
+
+    def place(self, x: torch.Tensor, like: torch.Tensor,
+              *axes: Optional[str]) -> torch.Tensor:
+        """``x``, the same whole value on every rank (made inside the
+        model), as a DTensor on ``like``'s mesh placed by ``spec(*axes)``;
+        ``x`` as it is when ``like`` is a plain tensor."""
+        if not isinstance(like, DTensor):
+            return x
+        from ..train.sharding import distribute
+        return distribute(x, like.device_mesh, self.spec(*axes))
+
+
+@contextlib.contextmanager
+def implicit_replication():
+    """``torch.distributed.tensor.experimental.implicit_replication`` that
+    nests: a plain tensor meeting a DTensor in an op counts as replicated
+    over the mesh (positions, masks, zeros made inside the model), and the
+    setting before the block is restored after it (torch's own resets it
+    to off, which would leave an enclosing step's backward without it)."""
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
+def on_shards(fn, args, in_placements, out_placements):
+    """``fn(*args)`` on each rank's shards (``local_map``): every DTensor
+    argument is first redistributed to its entry of ``in_placements`` (None
+    for an argument that is not a tensor), and the outputs become DTensors
+    placed by ``out_placements``.  The kernels run this way, and so does
+    work whose DTensor rules are missing or differ between torch versions
+    (the embedding's gather, the MoE router and experts, the depthwise
+    conv, decode attention, the Mamba step, the loss's rows); ``fn`` sees
+    plain local tensors.  With no DTensor argument it is ``fn(*args)``
+    and the placements are not read (they are None then)."""
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
+                None)
+    if mesh is None:
+        return fn(*args)
+    # local_map reads a tuple as one entry an output: one output's
+    # placements go as a list
+    single = all(isinstance(p, Placement) for p in out_placements)
+    outs = [out_placements] if single else list(out_placements)
+    # a mesh dim an output is split on (sharded, or each rank's part of a
+    # sum) splits the work: there a replicated input's gradient is each
+    # rank's part of the sum (Partial); on a mesh dim every output is
+    # replicated on, each rank holds all of it
+    split = [any(isinstance(o[j], (Shard, Partial)) for o in outs)
+             for j in range(mesh.ndim)]
+    grads = tuple(None if p is None else [
+        Partial() if split[j] and isinstance(pl, Replicate) else pl
+        for j, pl in enumerate(p)] for p in in_placements)
+    return local_map(
+        fn, out_placements=(list(out_placements) if single
+                            else tuple(list(o) for o in outs)),
+        in_placements=tuple(None if p is None else list(p)
+                            for p in in_placements),
+        in_grad_placements=grads, device_mesh=mesh,
+        redistribute_inputs=True)(*args)
 
 
 NO_RULES = Rules()
@@ -194,6 +289,9 @@ def attn_block(x: torch.Tensor, kv_src: torch.Tensor,
     q = q.reshape(B, Sq, kh, G, hd)
     k = k.reshape(B, kv_src.shape[1], kh, hd)
     v = v.reshape(B, kv_src.shape[1], kh, hd)
+    q = rules.cons(q, "batch", None, "kv_heads_act", None, None)
+    k = rules.cons(k, "batch", None, "kv_heads_act", None)
+    v = rules.cons(v, "batch", None, "kv_heads_act", None)
 
     if use_rope:
         q = apply_rope(q.reshape(B, Sq, kh * G, hd), q_pos, cfg.rope_theta
@@ -206,14 +304,17 @@ def attn_block(x: torch.Tensor, kv_src: torch.Tensor,
         k = k.repeat_interleave(r, dim=2)
         v = v.repeat_interleave(r, dim=2)
         q = q.reshape(B, Sq, kh * r, G // r, hd)
+        k = rules.cons(k, "batch", None, "kv_heads_act", None)
+        v = rules.cons(v, "batch", None, "kv_heads_act", None)
+        q = rules.cons(q, "batch", None, "kv_heads_act", None, None)
 
     if kv_cache is not None:
         k_cache, v_cache = kv_cache
         S_cache = k_cache.shape[1]
         slot = cache_pos % window if window and window > 0 else cache_pos
         start = _clamp_start(slot, S_cache, k.shape[1])
-        k_cache[:, start:start + k.shape[1]].copy_(k)
-        v_cache[:, start:start + v.shape[1]].copy_(v)
+        write_rows(k_cache, k, 1, start)
+        write_rows(v_cache, v, 1, start)
         idx = torch.arange(S_cache, device=x.device)
         if window and window > 0:
             # ring buffer: entry i holds the absolute position of its slot
@@ -226,16 +327,27 @@ def attn_block(x: torch.Tensor, kv_src: torch.Tensor,
             kv_valid = idx <= cache_pos
             kv_p = idx
         mask = attention_scores_mask(q_pos, kv_p, causal, window, kv_valid)
-        out = sdpa(q, k_cache.to(cdt), v_cache.to(cdt),
-                   mask[None, None, None], cfg.logit_softcap)
+        # each rank's batch rows and kv heads; a cache split along its
+        # sequence (the flash-decode layout) is gathered for the step
+        qp = rules.placements(q, "batch", None, "kv_heads_act", None, None)
+        kp = rules.placements(k_cache, "batch", None, "kv_heads_act", None)
+        out = on_shards(functools.partial(
+            _cache_sdpa, cdt=cdt, softcap=cfg.logit_softcap),
+            (q, k_cache, v_cache, mask[None, None, None]),
+            (qp, kp, kp, None), qp)
         new_cache = (k_cache, v_cache)
     else:
         qc = cfg.attn_q_chunk
         if attn_impl in ("auto", "cuda"):
-            out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=causal,
-                                  window=window, softcap=cfg.logit_softcap,
-                                  impl=attn_impl)
+            # the kernel on each rank's heads: batch over the data axes,
+            # kv heads over 'model' when they divide it; out as q
+            qp = rules.placements(q, "batch", None, "kv_heads_act", None,
+                                  None)
+            kp = rules.placements(k, "batch", None, "kv_heads_act", None)
+            out = on_shards(functools.partial(
+                _flash_local, causal=causal, window=window,
+                softcap=cfg.logit_softcap, impl=attn_impl),
+                (q, k, v), (qp, kp, kp), qp)
         elif attn_impl != "reference":
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         elif (qc and Sq > qc) or (not qc and Sq >= 8192):
@@ -247,7 +359,39 @@ def attn_block(x: torch.Tensor, kv_src: torch.Tensor,
         new_cache = (k, v)   # prefill: the computed k/v build the cache
 
     out = out.reshape(B, Sq, h * hd) @ p["wo"].to(cdt)
+    out = rules.cons(out, "batch", None, None)
     return out, new_cache
+
+
+def _cache_sdpa(q, k_cache, v_cache, mask, *, cdt, softcap):
+    return sdpa(q, k_cache.to(cdt), v_cache.to(cdt), mask, softcap)
+
+
+def _flash_local(q, k, v, **kw):
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           **kw)
+
+
+def write_rows(dst: torch.Tensor, src: torch.Tensor, dim: int, start: int
+               ) -> None:
+    """``dst.narrow(dim, start, n).copy_(src)``, in place, ``n`` the rows
+    of ``src``.  On a DTensor ``dst`` each rank writes the rows of its own
+    shard, so a cache split along ``dim`` (the flash-decode layout: its
+    sequence over 'model') takes the write with no gather."""
+    n = src.shape[dim]
+    if not isinstance(dst, DTensor):
+        dst.narrow(dim, start, n).copy_(src)
+        return
+    from ..train.sharding import local_window
+    mesh = dst.device_mesh
+    plc = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                for p in dst.placements)
+    src = src.redistribute(mesh, plc).to_local()
+    shape, offset = local_window(dst.shape, mesh, dst.placements)
+    lo, hi = max(start, offset[dim]), min(start + n, offset[dim] + shape[dim])
+    if hi > lo:
+        dst.to_local().narrow(dim, lo - offset[dim], hi - lo).copy_(
+            src.narrow(dim, lo - start, hi - lo).to(dst.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +407,8 @@ def mlp_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
         hid = F.silu(g) * u
     else:  # gelu; jax.nn.gelu defaults to the tanh approximation
         hid = F.gelu(xc @ p["wu"].to(cdt), approximate="tanh")
-    return hid @ p["wd"].to(cdt)
+    hid = rules.cons(hid, "batch", None, "d_ff")
+    return rules.cons(hid @ p["wd"].to(cdt), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -18,11 +18,13 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba_scan import mamba_scan, mamba_scan_chunked
-from .layers import Rules, dt
+from .layers import Rules, dt, on_shards
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -47,60 +49,96 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
     """x: [B, T, d].  ``state`` = (conv_state [B, K-1, di], h [B, di, N]) for
     decode (T == 1); None for prefill.  Returns (out, new_state)."""
     B, T, d = x.shape
-    di, N, dtr, K = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.d_conv
+    N, dtr, K = cfg.ssm_state, cfg.dt_rank, cfg.d_conv
     cdt = dt(cfg.compute_dtype)
     xc = x.to(cdt)
 
     xz = xc @ p["in_proj"].to(cdt)
     xin, z = xz.chunk(2, dim=-1)                      # [B, T, di] each
+    xin = rules.cons(xin, "batch", None, "d_inner")
+    # channel-local work on each rank's channels (on_shards; None on plain
+    # tensors): batch over the data axes, d_inner over 'model'
+    chan = rules.placements(xin, "batch", None, "d_inner")
 
     conv_w = p["conv_w"].to(cdt)                      # [K, di]
+    w_pl = rules.placements(conv_w, None, "d_inner")
     if state is not None:
         conv_state, h0 = state
-        xconv = _causal_conv(xin, conv_w, state=conv_state)
+        xconv = on_shards(_causal_conv, (xin, conv_w, conv_state),
+                          (chan, w_pl, chan), chan)
         new_conv_state = torch.cat([conv_state[:, 1:],
                                     xin.to(conv_state.dtype)], dim=1)
     else:
-        xconv = _causal_conv(xin, conv_w)
-        h0 = torch.zeros((B, di, N), dtype=torch.float32, device=x.device)
+        xconv = on_shards(_causal_conv, (xin, conv_w), (chan, w_pl), chan)
+        h0 = None                                     # zeros on each rank
         new_conv_state = xin[:, -(K - 1):]            # for prefill -> decode
     xconv = F.silu(xconv + p["conv_b"].to(cdt))
 
     # input-dependent dt, B, C
-    dbc = xconv @ p["x_proj"].to(cdt)
+    # the channels' parts summed here: delta, B and C need the whole sums
+    dbc = rules.cons(xconv @ p["x_proj"].to(cdt), "batch", None, None)
     dt_in, B_in, C_in = torch.split(dbc, [dtr, N, N], dim=-1)
     delta = F.softplus(dt_in @ p["dt_proj"].to(cdt) + p["dt_bias"].to(cdt))
     A = -torch.exp(p["A_log"].float())                # [di, N]
     B32 = B_in.float()
     C32 = C_in.float()
 
+    # the recurrence on each rank's channels: delta, x, y over d_inner;
+    # B and C replicated over 'model'; A and the states over d_inner
+    bc = rules.placements(B32, "batch", None, None)
+    a_pl = rules.placements(A, "d_inner", None)
+    st = rules.placements(delta.transpose(1, 2), "batch", "d_inner", None)
+    rec_pl = (chan, chan, bc, bc, a_pl, None if h0 is None else st)
     if T == 1:
-        delta32, x32 = delta.float(), xconv.float()
-        dA = torch.exp(delta32[:, 0, :, None] * A)    # [B, di, N]
-        dBx = (delta32[:, 0, :, None] * B32[:, 0, None, :]
-               * x32[:, 0, :, None])
-        h = dA * h0 + dBx
-        y = torch.einsum("bdn,bn->bd", h, C32[:, 0])[:, None]
-        hT = h
-    elif cfg.ssm_impl in ("auto", "cuda"):
-        # delta and x go in bf16 when that is the compute dtype: the kernel
-        # widens them in registers, bit for bit what widening first gives
-        kdt = cdt if cdt == torch.bfloat16 else torch.float32
-        y, hT = mamba_scan(delta.to(kdt).contiguous(),
-                           xconv.to(kdt).contiguous(),
-                           B32.contiguous(), C32.contiguous(), A.contiguous(),
-                           h0, impl=cfg.ssm_impl, chunk=cfg.ssm_chunk)
-    elif cfg.ssm_impl != "reference":
+        y, hT = on_shards(_decode_step, (delta, xconv, B32, C32, A, h0),
+                          rec_pl, (chan, st))
+    elif cfg.ssm_impl not in ("auto", "cuda", "reference"):
         raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
     else:
-        # chunked two-level scan, each chunk rematerialised under autograd
-        y, hT = mamba_scan_chunked(delta, xconv, B32, C32, A, h0,
-                                   chunk=cfg.ssm_chunk,
-                                   fused=cfg.ssm_fused_ref)
+        dx = (delta, xconv)
+        if cfg.ssm_impl != "reference":
+            # delta and x go in bf16 when that is the compute dtype: the
+            # kernel widens them in registers, bit for bit what widening
+            # first gives
+            kdt = cdt if cdt == torch.bfloat16 else torch.float32
+            dx = (delta.to(kdt), xconv.to(kdt))
+        y, hT = on_shards(functools.partial(_scan_local, cfg=cfg),
+                          dx + (B32, C32, A, h0), rec_pl, (chan, st))
 
     # xconv is already in the compute dtype (the reference rounds x32 back)
     y = y.to(cdt) + xconv * p["D"].to(cdt)
     y = y * F.silu(z)
-    out = y @ p["out_proj"].to(cdt)
+    out = rules.cons(y @ p["out_proj"].to(cdt), "batch", None, None)
     new_state = (new_conv_state, hT) if (state is not None or T > 1) else None
     return out, new_state
+
+
+def _zeros_state(delta, N):
+    """The initial state h0 [B, di, N] of a prefill: fp32 zeros."""
+    return torch.zeros((delta.shape[0], delta.shape[2], N),
+                       dtype=torch.float32, device=delta.device)
+
+
+def _decode_step(delta, x, B32, C32, A, h0):
+    """One recurrence step (T == 1) -> (y [B, 1, di], h [B, di, N]);
+    ``h0`` None: zeros (a 1-token prefill)."""
+    if h0 is None:
+        h0 = _zeros_state(delta, B32.shape[-1])
+    delta32, x32 = delta.float(), x.float()
+    dA = torch.exp(delta32[:, 0, :, None] * A)        # [B, di, N]
+    dBx = delta32[:, 0, :, None] * B32[:, 0, None, :] * x32[:, 0, :, None]
+    h = dA * h0 + dBx
+    return torch.einsum("bdn,bn->bd", h, C32[:, 0])[:, None], h
+
+
+def _scan_local(delta, x, B, C, A, h0, *, cfg):
+    """The scan (T > 1): the chunked plain scan under ``ssm_impl``
+    'reference', else the kernel; ``h0`` None: zeros (a prefill)."""
+    if h0 is None:
+        h0 = _zeros_state(delta, B.shape[-1])
+    if cfg.ssm_impl == "reference":
+        return mamba_scan_chunked(delta, x, B, C, A, h0, chunk=cfg.ssm_chunk,
+                                  fused=cfg.ssm_fused_ref)
+    return mamba_scan(delta.contiguous(), x.contiguous(), B.contiguous(),
+                      C.contiguous(), A.contiguous(), h0, impl=cfg.ssm_impl,
+                      chunk=cfg.ssm_chunk)

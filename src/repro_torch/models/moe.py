@@ -19,12 +19,14 @@ probabilities, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
-from .layers import Rules, dt
+from .layers import Rules, dt, on_shards
 
 
 def _capacity(group_size: int, k: int, n_experts: int, factor: float) -> int:
@@ -76,12 +78,46 @@ def route(xg: torch.Tensor, valid: torch.Tensor, router: torch.Tensor,
                    combine.view(Gn, Gs, E, C))
 
 
+def _route_local(xg, vg, router, *, k, capacity):
+    return tuple(route(xg, vg, router, k, capacity))
+
+
+def _experts(xg, combine, wg, wu, wd, *, cfg, rules):
+    """Dispatch the groups' tokens to their experts' capacity slots, the
+    expert FFN, and the gated combine: xg [Gn, Gs, d], combine [Gn, Gs, E,
+    C] fp32 -> [Gn, Gs, d] in the compute dtype."""
+    cdt = dt(cfg.compute_dtype)
+    dispatch = (combine > 0).to(cdt)                     # [Gn, Gs, E, C]
+    combine = combine.to(cdt)
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg.to(cdt))   # [Gn,E,C,d]
+    xe = rules.cons(xe, "batch", "experts", None, None)
+    if cfg.mlp_kind == "swiglu":
+        h = F.silu(_expert_mm(xe, wg, cdt)) * _expert_mm(xe, wu, cdt)
+    else:  # gelu; jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(_expert_mm(xe, wu, cdt), approximate="tanh")
+    h = rules.cons(h, "batch", "experts", None, "expert_ff")
+    ye = _expert_mm(h, wd, cdt)
+    del h
+    return torch.einsum("gsec,gecd->gsd", combine, ye)
+
+
 def _expert_mm(a: torch.Tensor, w: torch.Tensor, cdt: torch.dtype
                ) -> torch.Tensor:
     """a: [Gn, E, C, i] times each expert's w [E, i, o] in ``cdt``.  The
     cast copy of w lives only for this product (grok's three fp32 expert
     weights would take 19.3 GB a layer together)."""
     return torch.einsum("geci,eio->geco", a, w.to(cdt))
+
+
+def _experts_out(gp, cp, w_in):
+    """The experts' output placements: the groups' (``gp``) on a mesh dim
+    that splits them, each rank's part of the sum (Partial) on one that
+    splits the experts or d_ff, else replicated; None on plain tensors."""
+    if gp is None:
+        return None
+    return tuple(g if isinstance(g, Shard) else
+                 Partial() if isinstance(c, Shard) or isinstance(w, Shard)
+                 else Replicate() for g, c, w in zip(gp, cp, w_in))
 
 
 def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
@@ -102,21 +138,34 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
     Gn = xt.shape[0] // Gs
     xg = xt.reshape(Gn, Gs, d)
     vg = valid.reshape(Gn, Gs)
+    xg = rules.cons(xg, "batch", None, None)
+    C = _capacity(Gs, k, E, cfg.capacity_factor)
 
-    r = route(xg, vg, p["router"], k, _capacity(Gs, k, E, cfg.capacity_factor))
-    dispatch = (r.combine > 0).to(cdt)                   # [Gn, Gs, E, C]
-    combine = r.combine.to(cdt)
-
-    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg.to(cdt))   # [Gn,E,C,d]
-    if cfg.mlp_kind == "swiglu":
-        h = F.silu(_expert_mm(xe, p["wg"], cdt)) * _expert_mm(xe, p["wu"],
-                                                              cdt)
-    else:  # gelu; jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(_expert_mm(xe, p["wu"], cdt), approximate="tanh")
-    ye = _expert_mm(h, p["wd"], cdt)
-    del h
-    out = torch.einsum("gsec,gecd->gsd", combine, ye)    # [Gn, Gs, d]
-    out = out.reshape(Gn * Gs, d)[:T].reshape(B, S, d).to(x.dtype)
+    # each rank routes its own groups (groups over the data axes)
+    gp = rules.placements(xg, "batch", None, None)
+    vg = rules.place(vg, xg, "batch", None)
+    r = Routing(*on_shards(
+        functools.partial(_route_local, k=k, capacity=C),
+        (xg, vg, p["router"]),
+        (gp, gp, rules.placements(p["router"], None, None)), (gp,) * 5))
+    # dispatch, the expert products and the combine on each rank's groups:
+    # the weights gathered over the data axes (FSDP) and split over 'model'
+    # by d_ff (TP) or by expert (EP: the combine's slots of the rank's
+    # experts); a rank's output is its part of the sum over 'model',
+    # reduced in fp32 before the cast
+    cp = rules.placements(r.combine, "batch", None, "experts", None)
+    w_in = rules.placements(p["wu"], "experts", None, "expert_ff")
+    w_out = rules.placements(p["wd"], "experts", "expert_ff", None)
+    weights = (p.get("wg"), p["wu"], p["wd"])
+    out = on_shards(functools.partial(_experts, cfg=cfg, rules=rules),
+                    (xg, r.combine) + weights,
+                    (gp, cp, None if weights[0] is None else w_in, w_in,
+                     w_out), _experts_out(gp, cp, w_in))
+    out = rules.cons(out, "batch", None, None)       # [Gn, Gs, d]
+    out = out.reshape(Gn * Gs, d)
+    if pad:
+        out = out[:T]
+    out = rules.cons(out.reshape(B, S, d).to(x.dtype), "batch", None, None)
 
     # load-balance aux loss (mean over groups): E * sum_e f_e * P_e; padded
     # tokens count in P_e, as in the reference

@@ -16,12 +16,18 @@ the reference: ``batch["vision"]`` holds precomputed patch embeddings
 ``[B, T, d]``.
 
 Entry points:
-  init_params / param_shapes / param_count
+  init_params / param_shapes / param_specs / param_count
   forward_train(params, batch, cfg)        -> (loss, {"ce", "aux"})
   forward_prefill(params, batch, cfg)      -> (logits, cache)
   decode_step(params, cache, batch, cfg)   -> (logits, cache)
-  make_cache_shapes(cfg, B, S)             -> cache shapes (meta tensors)
+  make_cache_shapes(cfg, B, S, rules, as_spec) -> cache shapes (meta
+                                              tensors) or specs
   grow_cache(cache, cfg, max_len)          -> cache with free decode slots
+
+Each takes ``rules`` (default: the empty ``NO_RULES``); with DTensor
+parameters (``train/sharding.py``) the backbone constrains activations
+where the reference does.  The entry points run under
+``implicit_replication``, which changes nothing on plain tensors.
 
 A cache is a dict of stacked tensors plus ``pos_idx``, the next decode
 position, kept as a host int (decode slices the cache with it).  A period
@@ -44,10 +50,13 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import zeros as dtensor_zeros
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (NO_RULES, Rules, attn_block, dt, mlp_block, normal_init,
-                     rms_norm, sdpa)
+from .layers import (NO_RULES, Rules, attn_block, dt, implicit_replication,
+                     mlp_block, normal_init, on_shards, rms_norm, sdpa,
+                     write_rows)
 from .mamba import mamba_block
 from .moe import moe_block
 
@@ -93,67 +102,75 @@ def n_periods(cfg) -> int:
 
 
 # ---------------------------------------------------------------------------
-#  Parameter definitions: (path, shape, init_scale)
+#  Parameter definitions: (path, shape, logical_axes, init_scale)
 # ---------------------------------------------------------------------------
-def _layer_defs(cfg, pos: int) -> List[Tuple[str, tuple, float]]:
+def _layer_defs(cfg, pos: int) -> List[Tuple[str, tuple, tuple, float]]:
     """Definitions for the layer at in-period position ``pos`` (shapes
     WITHOUT the leading n_periods stack dim)."""
     d, f = cfg.d_model, cfg.d_ff
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
-    defs: List[Tuple[str, tuple, float]] = [("ln1", (d,), 1.0)]
+    defs: List[Tuple[str, tuple, tuple, float]] = [("ln1", (d,), (None,), 1.0)]
     if cfg.layer_kind(pos) == "attn":
-        defs += [("attn.wq", (d, h * hd), 0.02),
-                 ("attn.wk", (d, kh * hd), 0.02),
-                 ("attn.wv", (d, kh * hd), 0.02),
-                 ("attn.wo", (h * hd, d), out_scale)]
+        defs += [("attn.wq", (d, h * hd), ("embed", "heads"), 0.02),
+                 ("attn.wk", (d, kh * hd), ("embed", "kv_heads"), 0.02),
+                 ("attn.wv", (d, kh * hd), ("embed", "kv_heads"), 0.02),
+                 ("attn.wo", (h * hd, d), ("heads", "embed"), out_scale)]
         if cfg.attn_bias:
-            defs += [("attn.bq", (h * hd,), 0.0),
-                     ("attn.bk", (kh * hd,), 0.0),
-                     ("attn.bv", (kh * hd,), 0.0)]
+            defs += [("attn.bq", (h * hd,), ("heads",), 0.0),
+                     ("attn.bk", (kh * hd,), ("kv_heads",), 0.0),
+                     ("attn.bv", (kh * hd,), ("kv_heads",), 0.0)]
     else:  # mamba
         di, N, dtr, K = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.d_conv
-        defs += [("mamba.in_proj", (d, 2 * di), 0.02),
-                 ("mamba.conv_w", (K, di), 0.02),
-                 ("mamba.conv_b", (di,), 0.0),
-                 ("mamba.x_proj", (di, dtr + 2 * N), 0.02),
-                 ("mamba.dt_proj", (dtr, di), 0.02),
-                 ("mamba.dt_bias", (di,), 0.0),
-                 ("mamba.A_log", (di, N), 1.0),
-                 ("mamba.D", (di,), 1.0),
-                 ("mamba.out_proj", (di, d), out_scale)]
+        defs += [("mamba.in_proj", (d, 2 * di), ("embed", "d_inner"), 0.02),
+                 ("mamba.conv_w", (K, di), (None, "d_inner"), 0.02),
+                 ("mamba.conv_b", (di,), ("d_inner",), 0.0),
+                 ("mamba.x_proj", (di, dtr + 2 * N), ("d_inner", None), 0.02),
+                 ("mamba.dt_proj", (dtr, di), (None, "d_inner"), 0.02),
+                 ("mamba.dt_bias", (di,), ("d_inner",), 0.0),
+                 ("mamba.A_log", (di, N), ("d_inner", None), 1.0),
+                 ("mamba.D", (di,), ("d_inner",), 1.0),
+                 ("mamba.out_proj", (di, d), ("d_inner", "embed"), out_scale)]
     if cfg.has_cross_attn(pos):
-        defs += [("ln_x", (d,), 1.0),
-                 ("xattn.wq", (d, h * hd), 0.02),
-                 ("xattn.wk", (d, kh * hd), 0.02),
-                 ("xattn.wv", (d, kh * hd), 0.02),
-                 ("xattn.wo", (h * hd, d), out_scale),
-                 ("xattn.gate", (1,), 0.0)]
+        defs += [("ln_x", (d,), (None,), 1.0),
+                 ("xattn.wq", (d, h * hd), ("embed", "heads"), 0.02),
+                 ("xattn.wk", (d, kh * hd), ("embed", "kv_heads"), 0.02),
+                 ("xattn.wv", (d, kh * hd), ("embed", "kv_heads"), 0.02),
+                 ("xattn.wo", (h * hd, d), ("heads", "embed"), out_scale),
+                 ("xattn.gate", (1,), (None,), 0.0)]
     if cfg.d_ff > 0:
-        defs.append(("ln2", (d,), 1.0))
+        defs.append(("ln2", (d,), (None,), 1.0))
         if cfg.ffn_kind(pos) == "moe":
             E = cfg.n_experts
-            defs += [("moe.router", (d, E), 0.02),
-                     ("moe.wg", (E, d, f), 0.02),
-                     ("moe.wu", (E, d, f), 0.02),
-                     ("moe.wd", (E, f, d), out_scale)]
+            # 'experts'/'expert_ff' resolve per sharding profile: experts
+            # replicated with TP over d_ff, or (expert_parallel) experts
+            # over 'model' with d_ff whole
+            defs += [("moe.router", (d, E), ("embed", None), 0.02),
+                     ("moe.wg", (E, d, f), ("experts", "embed", "expert_ff"),
+                      0.02),
+                     ("moe.wu", (E, d, f), ("experts", "embed", "expert_ff"),
+                      0.02),
+                     ("moe.wd", (E, f, d), ("experts", "expert_ff", "embed"),
+                      out_scale)]
         else:
             if cfg.mlp_kind == "swiglu":
-                defs.append(("mlp.wg", (d, f), 0.02))
-            defs += [("mlp.wu", (d, f), 0.02),
-                     ("mlp.wd", (f, d), out_scale)]
+                defs.append(("mlp.wg", (d, f), ("embed", "d_ff"), 0.02))
+            defs += [("mlp.wu", (d, f), ("embed", "d_ff"), 0.02),
+                     ("mlp.wd", (f, d), ("d_ff", "embed"), out_scale)]
     return defs
 
 
-def _top_defs(cfg) -> List[Tuple[str, tuple, float]]:
+def _top_defs(cfg) -> List[Tuple[str, tuple, tuple, float]]:
     d, V = cfg.d_model, cfg.vocab_size
-    defs: List[Tuple[str, tuple, float]] = []
+    defs: List[Tuple[str, tuple, tuple, float]] = []
     if cfg.family == "audio":
-        defs += [("in_proj_w", (d, d), 0.02), ("in_proj_b", (d,), 0.0),
-                 ("in_ln", (d,), 1.0)]
+        defs += [("in_proj_w", (d, d), ("embed", None), 0.02),
+                 ("in_proj_b", (d,), (None,), 0.0),
+                 ("in_ln", (d,), (None,), 1.0)]
     else:
-        defs.append(("tok_embed", (V, d), 0.02))
-    defs += [("final_ln", (d,), 1.0), ("head_w", (d, V), 0.02)]
+        defs.append(("tok_embed", (V, d), ("vocab", "embed"), 0.02))
+    defs += [("final_ln", (d,), (None,), 1.0),
+             ("head_w", (d, V), ("embed", "vocab"), 0.02)]
     return defs
 
 
@@ -165,30 +182,38 @@ def _assign(tree: dict, path: str, val) -> None:
 
 
 def _build(cfg, leaf_fn) -> Params:
-    """Build the param tree; ``leaf_fn(path, shape, scale)`` produces each
-    leaf.  Layer params get a leading n_periods dim."""
+    """Build the param tree; ``leaf_fn(path, shape, axes, scale)`` produces
+    each leaf.  Layer params get a leading n_periods dim ('layers')."""
     np_ = n_periods(cfg)
     tree: Params = {"blocks": {}}
-    for path, shape, scale in _top_defs(cfg):
-        _assign(tree, path, leaf_fn(path, shape, scale))
+    for path, shape, axes, scale in _top_defs(cfg):
+        _assign(tree, path, leaf_fn(path, shape, axes, scale))
     for pos in range(period(cfg)):
         sub: Params = {}
-        for path, shape, scale in _layer_defs(cfg, pos):
+        for path, shape, axes, scale in _layer_defs(cfg, pos):
             _assign(sub, path, leaf_fn(f"blocks.pos{pos}.{path}",
-                                       (np_,) + shape, scale))
+                                       (np_,) + shape, ("layers",) + axes,
+                                       scale))
         tree["blocks"][f"pos{pos}"] = sub
     return tree
 
 
-def init_params(cfg, seed: int = 0, device="cuda") -> Params:
+def init_params(cfg, seed: int = 0, device="cuda", place=None) -> Params:
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
     The structure and the constant leaves are the reference's; the random
-    bits are not (tests carry the reference's weights across instead)."""
+    bits are not (tests carry the reference's weights across instead).
+    ``place(path, leaf)``, if given, replaces each leaf as soon as it is
+    drawn (a sharded launcher keeps its rank's shard: one whole leaf lives
+    at a time, and every rank draws the same values from the seed)."""
     device = torch.device(device)
     check_supported(cfg, device)
     pdt = dt(cfg.param_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+
+    def placed(path, shape, axes, scale):
+        x = leaf(path, shape, scale)
+        return x if place is None else place(path, x)
 
     def leaf(path, shape, scale):
         if path.endswith("A_log"):
@@ -205,14 +230,20 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Params:
             return torch.zeros(shape, dtype=pdt, device=device)
         return normal_init(gen, shape, scale, pdt)
 
-    return _build(cfg, leaf)
+    return _build(cfg, placed)
 
 
 def param_shapes(cfg) -> Params:
     """The parameter tree as meta tensors (shapes and dtypes, no data)."""
     pdt = dt(cfg.param_dtype)
-    return _build(cfg, lambda path, shape, scale:
+    return _build(cfg, lambda path, shape, axes, scale:
                   torch.empty(shape, dtype=pdt, device="meta"))
+
+
+def param_specs(cfg, rules: Rules) -> Params:
+    """The parameter tree of specs: one entry a dim (the reference's
+    ``PartitionSpec``), from each leaf's logical axes through ``rules``."""
+    return _build(cfg, lambda path, shape, axes, scale: rules.spec(*axes))
 
 
 def _leaves(tree):
@@ -234,29 +265,39 @@ def cache_len(cfg, seq_len: int) -> int:
     return min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
 
 
-def make_cache_shapes(cfg, batch: int, seq_len: int) -> Dict[str, Any]:
-    """The decode cache as meta tensors (shapes and dtypes only)."""
+def make_cache_shapes(cfg, batch: int, seq_len: int, rules: Rules = NO_RULES,
+                      as_spec: bool = False) -> Dict[str, Any]:
+    """The decode cache as meta tensors (shapes and dtypes only), or with
+    ``as_spec`` its specs under ``rules``."""
     np_ = n_periods(cfg)
-    kh, hd = cfg.kh_eff, cfg.hd
+    kh, hd = cfg.kh_eff, cfg.hd      # kv heads after TP replication
     cdt = dt(cfg.compute_dtype)
     Sc = cache_len(cfg, seq_len)
-    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+
+    def leaf(shape, dtype, *axes):
+        if as_spec:
+            return rules.spec(*axes)
+        return torch.empty(shape, dtype=dtype, device="meta")
     tree: Dict[str, Any] = {}
     for pos in range(period(cfg)):
         sub: Dict[str, Any] = {}
         if cfg.layer_kind(pos) == "attn":
-            sub["k"] = meta((np_, batch, Sc, kh, hd), cdt)
-            sub["v"] = meta((np_, batch, Sc, kh, hd), cdt)
+            axes = ("layers", "batch", "kv_seq", "kv_heads_cache", None)
+            sub["k"] = leaf((np_, batch, Sc, kh, hd), cdt, *axes)
+            sub["v"] = leaf((np_, batch, Sc, kh, hd), cdt, *axes)
         else:
             di, N, K = cfg.d_inner, cfg.ssm_state, cfg.d_conv
-            sub["conv"] = meta((np_, batch, K - 1, di), cdt)
-            sub["h"] = meta((np_, batch, di, N), torch.float32)
+            sub["conv"] = leaf((np_, batch, K - 1, di), cdt,
+                               "layers", "batch", None, "d_inner")
+            sub["h"] = leaf((np_, batch, di, N), torch.float32,
+                            "layers", "batch", "d_inner", None)
         if cfg.has_cross_attn(pos):
             vshp = (np_, batch, cfg.n_vision_tokens, kh, hd)
-            sub["xk"] = meta(vshp, cdt)
-            sub["xv"] = meta(vshp, cdt)
+            vaxes = ("layers", "batch", None, "kv_heads_cache", None)
+            sub["xk"] = leaf(vshp, cdt, *vaxes)
+            sub["xv"] = leaf(vshp, cdt, *vaxes)
         tree[f"pos{pos}"] = sub
-    tree["pos_idx"] = meta((), torch.int32)
+    tree["pos_idx"] = leaf((), torch.int32)
     return tree
 
 
@@ -272,8 +313,15 @@ def grow_cache(cache: Dict[str, Any], cfg, max_len: int) -> Dict[str, Any]:
         grown = {}
         for name, x in sub.items():
             if name in ("k", "v") and x.dim() == 5 and x.shape[2] < Sc:
-                big = x.new_zeros(x.shape[:2] + (Sc,) + x.shape[3:])
-                big[:, :, :x.shape[2]].copy_(x)
+                shape = x.shape[:2] + (Sc,) + x.shape[3:]
+                if isinstance(x, DTensor):      # zeros placed as x
+                    big = dtensor_zeros(shape, dtype=x.dtype,
+                                        device_mesh=x.device_mesh,
+                                        placements=x.placements)
+                    write_rows(big, x, 2, 0)
+                else:
+                    big = x.new_zeros(shape)
+                    big[:, :, :x.shape[2]].copy_(x)
                 x = big
             grown[name] = x
         out[key] = grown
@@ -290,6 +338,7 @@ def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, vision, cache,
     new_cache: Dict[str, Any] = {}
     aux = None
     hin = rms_norm(h, sub["ln1"], cfg.norm_eps)
+    hin = rules.cons(hin, "batch", "seq_act", None)   # SP: norm runs sharded
     if cfg.layer_kind(pos) == "attn":
         kv_cache = ((cache["k"], cache["v"])
                     if (cache is not None and mode == "decode") else None)
@@ -334,11 +383,15 @@ def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, vision, cache,
             h = h + torch.tanh(sub["xattn"]["gate"].to(h.dtype)) * out
     if cfg.d_ff > 0:
         hin2 = rms_norm(h, sub["ln2"], cfg.norm_eps)
+        hin2 = rules.cons(hin2, "batch", "seq_act", None)
         if cfg.ffn_kind(pos) == "moe":
             out, aux = moe_block(hin2, sub["moe"], cfg, rules)
         else:
             out = mlp_block(hin2, sub["mlp"], cfg, rules)
         h = h + out
+    # sequence parallelism: the residual stream parked seq-sharded over the
+    # TP axis between blocks (a no-op unless cfg.seq_shard)
+    h = rules.cons(h, "batch", "seq_act", None)
     return h, new_cache, aux
 
 
@@ -410,11 +463,19 @@ def backbone(params, h, cfg, rules: Rules, mode: str, q_pos, kv_pos,
                 continue
             dst = stacked.setdefault(key, {})
             for name, new in nc.items():
+                if isinstance(new, DTensor):     # stacked once, placed as new
+                    dst.setdefault(name, []).append(new)
+                    continue
                 if name not in dst:
                     dst[name] = new.new_empty((n_periods(cfg),) + new.shape)
                 dst[name][i].copy_(new)
-    new_cache = cache if mode == "decode" else (stacked or None)
-    return h, new_cache, None
+    if mode == "decode":
+        return h, cache, None
+    for dst in stacked.values():
+        for name, new in dst.items():
+            if isinstance(new, list):
+                dst[name] = torch.stack(new)
+    return h, stacked or None, None
 
 
 def _train_period(h, bp, cfg, rules, q_pos, kv_pos, vision):
@@ -452,13 +513,30 @@ def _embed(params, batch, cfg, rules: Rules):
         x = x + params["in_proj_b"].to(cdt)
         return rms_norm(x, params["in_ln"], cfg.norm_eps)
     # gather then cast: the same values as the reference's cast then gather
-    return params["tok_embed"][batch["tokens"]].to(cdt)
+    table, tok = params["tok_embed"], batch["tokens"]
+    # each rank gathers its batch rows from the whole table (the table's
+    # gradient: each data rank's part of the sum)
+    tp = rules.placements(tok, "batch", None)
+    x = on_shards(_gather_rows, (table, tok),
+                  (rules.placements(table, None, None), tp), tp)
+    return rules.cons(x.to(cdt), "batch", None, None)
+
+
+def _gather_rows(table, idx):
+    return table[idx]
 
 
 def _logits(params, h, cfg, rules: Rules):
     cdt = dt(cfg.compute_dtype)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return h.to(cdt) @ params["head_w"].to(cdt)
+    return rules.cons(h.to(cdt) @ params["head_w"].to(cdt), "batch", None,
+                      "vocab")
+
+
+def _token_nll(lg: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """logsumexp minus the gold logit, a position."""
+    logz = torch.logsumexp(lg, dim=-1)
+    return logz - lg.gather(-1, tgt[..., None].long())[..., 0]
 
 
 def forward_train(params, batch, cfg, rules: Rules = NO_RULES):
@@ -471,19 +549,21 @@ def forward_train(params, batch, cfg, rules: Rules = NO_RULES):
     aux``, ``aux`` the MoE layers' summed load-balancing loss (0 without
     MoE layers)."""
     check_supported(cfg, params["head_w"].device)
-    x = _embed(params, batch, cfg, rules)
-    pos = torch.arange(x.shape[1], device=x.device)
-    h, _, aux = backbone(params, x, cfg, rules, "train", pos, pos,
-                         vision=batch.get("vision"))
-    logits = _logits(params, h, cfg, rules).float()
-    if cfg.family == "audio":
-        tgt, lg = batch["labels"], logits
-    else:
-        tgt, lg = batch["tokens"][:, 1:], logits[:, :-1]
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = lg.gather(-1, tgt[..., None].long())[..., 0]
-    ce = (logz - gold).mean()
-    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    with implicit_replication():
+        x = _embed(params, batch, cfg, rules)
+        pos = torch.arange(x.shape[1], device=x.device)
+        h, _, aux = backbone(params, x, cfg, rules, "train", pos, pos,
+                             vision=batch.get("vision"))
+        logits = _logits(params, h, cfg, rules).float()
+        if cfg.family == "audio":
+            tgt, lg = batch["labels"], logits
+        else:
+            tgt, lg = batch["tokens"][:, 1:], logits[:, :-1]
+        # a row's loss on the rank holding the row: the vocab gathered
+        lp = rules.placements(lg, "batch", None, None)
+        nll = on_shards(_token_nll, (lg, tgt), (lp, lp), lp)
+        ce = nll.mean()
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def forward_prefill(params, batch, cfg, rules: Rules = NO_RULES):
@@ -492,12 +572,13 @@ def forward_prefill(params, batch, cfg, rules: Rules = NO_RULES):
     ``batch`` holds ``tokens`` [B, S] (audio: ``frames`` [B, T, d]) and, for
     a vlm, optionally ``vision`` [B, n_vision_tokens, d]."""
     check_supported(cfg, params["head_w"].device)
-    x = _embed(params, batch, cfg, rules)
-    S = x.shape[1]
-    pos = torch.arange(S, device=x.device)
-    h, cache, _ = backbone(params, x, cfg, rules, "prefill", pos, pos,
-                           vision=batch.get("vision"))
-    logits = _logits(params, h[:, -1:], cfg, rules)
+    with implicit_replication():
+        x = _embed(params, batch, cfg, rules)
+        S = x.shape[1]
+        pos = torch.arange(S, device=x.device)
+        h, cache, _ = backbone(params, x, cfg, rules, "prefill", pos, pos,
+                               vision=batch.get("vision"))
+        logits = _logits(params, h[:, -1:], cfg, rules)
     if cache is not None:
         cache["pos_idx"] = S
     return logits, cache
@@ -510,12 +591,13 @@ def decode_step(params, cache, batch, cfg, rules: Rules = NO_RULES):
     cache shares them, with ``pos_idx`` one further.  A vlm's cross-attention
     reads the vision K/V its prefill cached."""
     check_supported(cfg, params["head_w"].device)
-    x = _embed(params, batch, cfg, rules)                # [B, 1, d]
-    pos_idx = int(cache["pos_idx"])
-    q_pos = torch.tensor([pos_idx], device=x.device)
-    h, new_cache, _ = backbone(params, x, cfg, rules, "decode", q_pos, q_pos,
-                               cache=cache, cache_pos=pos_idx)
-    logits = _logits(params, h, cfg, rules)
+    with implicit_replication():
+        x = _embed(params, batch, cfg, rules)            # [B, 1, d]
+        pos_idx = int(cache["pos_idx"])
+        q_pos = torch.tensor([pos_idx], device=x.device)
+        h, new_cache, _ = backbone(params, x, cfg, rules, "decode", q_pos,
+                                   q_pos, cache=cache, cache_pos=pos_idx)
+        logits = _logits(params, h, cfg, rules)
     new_cache = dict(new_cache)
     new_cache["pos_idx"] = pos_idx + 1
     return logits, new_cache

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.layers import dt
 
@@ -70,17 +71,42 @@ def init_opt_state(params, model_cfg) -> Dict[str, Any]:
     """Zero moments in ``opt_state_dtype`` beside each parameter, and the
     step as an int32 tensor on the parameters' device."""
     odt = dt(model_cfg.opt_state_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=odt, device=p.device)
+
+    def zeros(p):
+        if isinstance(p, DTensor):                  # placed as p
+            return torch.zeros_like(p, dtype=odt)
+        return torch.zeros(p.shape, dtype=odt, device=p.device)
     device = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def opt_state_shapes(params, model_cfg) -> Dict[str, Any]:
+    """The opt state as meta tensors (shapes and dtypes, no data)."""
+    odt = dt(model_cfg.opt_state_dtype)
+    meta = lambda p: torch.empty(p.shape, dtype=odt, device="meta")
+    return {"m": tree_map(meta, params), "v": tree_map(meta, params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def opt_state_specs(param_specs_tree) -> Dict[str, Any]:
+    """Specs mirroring the parameter sharding; the step replicated."""
+    return {"m": param_specs_tree, "v": param_specs_tree, "step": ()}
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
+    """sqrt of the sum of squares of every leaf, in fp32.  DTensor leaves
+    count each element once over the mesh (``sharding.sum_of_squares``)."""
+    leaves = tree_leaves(tree)
+    if any(isinstance(x, DTensor) for x in leaves):
+        from .sharding import sum_of_squares
+        return torch.sqrt(sum_of_squares(leaves).sum())
     return torch.sqrt(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    ).sum())
+        [torch.sum(torch.square(x.float())) for x in leaves]).sum())
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
@@ -94,8 +120,9 @@ def adamw_update(grads, params, opt_state, ocfg: OptConfig, model_cfg
                  ) -> Dict[str, torch.Tensor]:
     """One AdamW step, IN PLACE on ``params`` and ``opt_state`` (see the
     module docstring).  Returns the stats ``{"lr", "grad_norm"}`` as 0-dim
-    tensors."""
-    step = opt_state["step"]
+    tensors.  DTensor leaves (a sharded step) update each rank's shards in
+    place, clipped by the global gradient norm."""
+    step = _local(opt_state["step"])
     lr = lr_at(step, ocfg)
     gnorm = global_norm(grads)
     scale = (torch.clamp(ocfg.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -107,6 +134,7 @@ def adamw_update(grads, params, opt_state, ocfg: OptConfig, model_cfg
                  tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]))
     for P, G, M, V in leaves:
         wd = ocfg.weight_decay if P.dim() >= 2 else 0.0   # none on norms
+        P, G, M, V = (_local(t) for t in (P, G, M, V))
         for p, g, m, v in zip(_slices(P), _slices(G), _slices(M),
                               _slices(V)):
             g32 = g.float() * scale

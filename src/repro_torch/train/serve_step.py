@@ -2,7 +2,8 @@
 
 Decode writes each token's k/v (or SSM state) into the grown cache's
 memory: the reference's donated cache buffer, the paper's shared caching
-scheme applied to serving, with no copy per token.
+scheme applied to serving, with no copy per token.  ``sharded_serve_steps``
+runs both over a ``DeviceMesh`` (the reference's ``jit_serve_steps``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,48 @@ def make_serve_steps(cfg, rules: Rules = NO_RULES):
 
     def decode(params, cache, batch):
         return decode_step(params, cache, batch, cfg, rules)
+
+    return prefill, decode
+
+
+def sharded_serve_steps(cfg, rules: Rules, param_spec_tree, mesh,
+                        batch: int, seq_len: int):
+    """The counterpart of the reference's ``jit_serve_steps``: (prefill,
+    decode) over ``mesh``, every rank calling them with the same
+    arguments.
+
+    Both place the params by ``param_spec_tree`` (a plain tensor is the
+    whole value on each rank, which keeps its slice; a DTensor so placed is
+    used as it is) and the tokens by the batch spec.  Prefill returns
+    (logits, cache) as DTensors, the cache's layers placed as ``rules``
+    make them; ``grow_cache`` keeps their placements.  Decode places the
+    cache by ``make_cache_shapes(cfg, batch, seq_len, rules,
+    as_spec=True)``, each spec limited to the dims it divides (the
+    ``decode`` profile: kv heads over 'model', or the sequence when the
+    heads do not divide it): a cache already so placed is written in place
+    (the reference donates it), one placed otherwise is redistributed
+    once, on its first step."""
+    from ..models.transformer import make_cache_shapes
+    from .sharding import distribute, distribute_tree
+    prefill_fn, decode_fn = make_serve_steps(cfg, rules)
+    cache_spec = make_cache_shapes(cfg, batch, seq_len, rules, as_spec=True)
+
+    def place_batch(b):
+        return {k: distribute(v, mesh, rules.spec("batch", None)
+                              if k in ("tokens", "labels")
+                              else rules.spec("batch", None, None))
+                for k, v in b.items()}
+
+    def prefill(params, b):
+        params = distribute_tree(params, param_spec_tree, mesh)
+        return prefill_fn(params, place_batch(b))
+
+    def decode(params, cache, b):
+        params = distribute_tree(params, param_spec_tree, mesh)
+        cache = {k: (v if k == "pos_idx"
+                     else distribute_tree(v, cache_spec[k], mesh))
+                 for k, v in cache.items()}
+        return decode_fn(params, cache, place_batch(b))
 
     return prefill, decode
 

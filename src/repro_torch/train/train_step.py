@@ -9,14 +9,15 @@ The reference's jitted step donates params and opt state; here
 has freed its graph.  Gradients accumulate in ``grad_accum_dtype`` (""
 means ``opt_state_dtype``), in one buffer a parameter leaf that the
 per-layer gradients land in as the backward produces them.
-``jit_train_step`` (in/out shardings over a mesh) waits for the sharding
-slice (ROADMAP queue A).
+``sharded_train_step`` is the reference's ``jit_train_step``: the same
+step over a ``DeviceMesh``, on DTensors placed by the sharding rules.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.layers import NO_RULES, Rules, dt
 from ..models.transformer import forward_train
@@ -57,7 +58,10 @@ def _accumulating_leaves(params, gdt: Optional[torch.dtype]
         return leaf
 
     def make(p: torch.Tensor, stacked: bool):
-        acc = torch.zeros(p.shape, dtype=gdt or p.dtype, device=p.device)
+        if isinstance(p, DTensor):                  # placed as p
+            acc = torch.zeros_like(p, dtype=gdt or p.dtype)
+        else:
+            acc = torch.zeros(p.shape, dtype=gdt or p.dtype, device=p.device)
         if stacked:
             return [bind(p[i], acc[i]) for i in range(p.shape[0])], acc
         return bind(p, acc), acc
@@ -69,13 +73,15 @@ def _accumulating_leaves(params, gdt: Optional[torch.dtype]
 
 
 def make_train_step(cfg, ocfg: OptConfig, rules: Rules = NO_RULES,
-                    grad_transform: Optional[Callable] = None):
+                    grad_transform: Optional[Callable] = None,
+                    place_batch: Optional[Callable] = None):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``.  ``params`` and ``opt_state`` are updated in
     place and returned; ``grad_transform(grads) -> grads`` hooks gradient
     compression and the like.  ``metrics``: ``loss``, ``ce``, ``aux``
     (each the mean over the microbatches), ``lr`` and ``grad_norm``, 0-dim
-    tensors on the parameters' device."""
+    tensors on the parameters' device.  ``place_batch(mb) -> mb`` places
+    each microbatch (``sharded_train_step``: over the mesh)."""
     m = max(cfg.grad_accum, 1)
     # one microbatch: the gradients in the parameters' dtype, as the
     # reference's value_and_grad gives them
@@ -86,7 +92,11 @@ def make_train_step(cfg, ocfg: OptConfig, rules: Rules = NO_RULES,
         try:
             sums: Dict[str, torch.Tensor] = {}
             for mb in (_split_microbatches(batch, m) if m > 1 else [batch]):
+                if place_batch is not None:
+                    mb = place_batch(mb)
                 loss, mets = forward_train(leaves, mb, cfg, rules)
+                if isinstance(loss, DTensor):
+                    loss = loss.full_tensor()
                 loss.backward()
                 for k, v in dict(mets, loss=loss).items():
                     v = v.detach()
@@ -103,5 +113,45 @@ def make_train_step(cfg, ocfg: OptConfig, rules: Rules = NO_RULES,
         metrics = {k: v / m for k, v in sums.items()}
         metrics.update(stats)
         return params, opt_state, metrics
+
+    return train_step
+
+
+def sharded_train_step(cfg, ocfg: OptConfig, rules: Rules, param_spec_tree,
+                       batch_specs, mesh,
+                       grad_transform: Optional[Callable] = None):
+    """The counterpart of the reference's ``jit_train_step``: the train step
+    over ``mesh`` (a ``DeviceMesh``), every rank calling it with the same
+    arguments.
+
+    Params and opt state are placed by ``param_spec_tree`` (and
+    ``opt_state_specs`` of it), each spec limited to the dims it divides:
+    a plain tensor is the whole value on each rank, which keeps its own
+    slice; a DTensor already so placed is used as it is, and then updated
+    in place, the counterpart of ``donate_argnums=(0, 1)``.  The batch
+    holds the global batch on every rank (plain tensors; a DTensor is
+    gathered first); it is split into microbatches as the unsharded step
+    splits it and each is placed by ``batch_specs``.  The model runs on
+    DTensors under ``implicit_replication`` (its backward too), the
+    kernels on each rank's shards; gradients accumulate into DTensors
+    placed as their parameters, AdamW updates each rank's shards in place,
+    clipped by the global norm.  Returns (params, opt_state, metrics),
+    the metrics whole 0-dim tensors on every rank."""
+    from ..models.layers import implicit_replication
+    from .optimizer import opt_state_specs
+    from .sharding import distribute, distribute_tree, full
+    step_fn = make_train_step(
+        cfg, ocfg, rules, grad_transform,
+        place_batch=lambda mb: {k: distribute(v, mesh, batch_specs[k])
+                                for k, v in mb.items()})
+    o_specs = opt_state_specs(param_spec_tree)
+
+    def train_step(params, opt_state, batch):
+        params = distribute_tree(params, param_spec_tree, mesh)
+        opt_state = distribute_tree(opt_state, o_specs, mesh)
+        batch = {k: full(v) for k, v in batch.items()}
+        with implicit_replication():
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        return params, opt_state, {k: full(v) for k, v in metrics.items()}
 
     return train_step

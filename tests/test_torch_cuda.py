@@ -990,3 +990,101 @@ def test_train_step_on_the_card_matches_the_cpu(dev, arch):
     for a, b in zip(out[1][1], out[0][1]):
         torch.testing.assert_close(
             a, b, rtol=1e-3, atol=1e-4 * float(b.abs().max()) + 1e-12)
+
+
+# Sharded steps on the card: a world of one nccl rank (NCCL puts no two
+# ranks on one card) with the real make_rules on a 1x1 mesh.
+@pytest.fixture
+def mesh1(dev, tmp_path):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "falcon-mamba-7b"])
+def test_sharded_train_step_on_a_world1_mesh_equals_the_unsharded(
+        dev, mesh1, arch):
+    """Two smoke train steps (grad_accum 2, fp32, the kernels' Functions)
+    through ``sharded_train_step`` against ``make_train_step`` from the
+    same seed: losses and grad norms within rtol 1e-6, params within 1e-6,
+    the kernel launched as often."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_state, sharded_setup
+    from repro_torch.train.optimizer import OptConfig, tree_leaves
+    from repro_torch.train.sharding import full
+    from repro_torch.train.train_step import (make_train_step,
+                                              sharded_train_step)
+    cfg = get_config(arch, smoke=True).replace(compute_dtype="float32",
+                                               grad_accum=2)
+    ocfg = OptConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    toks = [torch.from_numpy(RNG.integers(0, cfg.vocab_size, (4, 64))).to(dev)
+            for _ in range(2)]
+    kernel = "flash_attention" if arch == "stablelm-3b" else "mamba_scan"
+    runs = []
+    for sharded in (False, True):
+        if sharded:
+            scfg, rules, p_specs, b_specs = sharded_setup(cfg, mesh1, 4, 64)
+            p, opt = build_state(scfg, 0, dev, mesh1, p_specs)
+            step = sharded_train_step(scfg, ocfg, rules, p_specs, b_specs,
+                                      mesh1)
+        else:
+            p, opt = build_state(cfg, 0, dev)
+            step = make_train_step(cfg, ocfg)
+        reset_launches()
+        mets = [step(p, opt, {"tokens": t})[2] for t in toks]
+        runs.append(([float(m[k]) for m in mets
+                      for k in ("loss", "grad_norm")],
+                     [full(t).cpu() for t in tree_leaves(p)],
+                     launch_counts()[kernel]))
+    (lw, pw, nw), (lg, pg, ng) = runs
+    np.testing.assert_allclose(lg, lw, rtol=1e-6)
+    for a, b in zip(pg, pw):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert ng == nw == 2 * 2 * cfg.n_layers * 2
+
+
+def test_flash_on_local_shards_matches_plain(dev, mesh1):
+    """bf16 flash through ``local_map`` on the one card's 1x1 mesh, so the
+    kernel gets the whole, unsplit tensor; its shape is the one a rank of
+    stablelm-3b at model 2 would get (16 of its 32 kv heads of 80).  q and
+    k/v DTensors placed as the model places them, one launch, the output
+    placed as q.  Each output element within twice the worst case of bf16
+    rounding of the probabilities and the output on either side,
+    2^-6 * (attention over |v| + |want|), and the whole within 2^-6 of
+    |want| in the 2-norm: a row of 2048 keys averages v down to a few
+    hundredths, where a fixed atol of 2e-2 would pass a wrong kernel."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models.layers import _flash_local, on_shards
+    from repro_torch.train.sharding import distribute, make_rules
+    rules = make_rules(mesh1, "train", get_config("stablelm-3b"))
+    B, S, Kh, hd = 2, 2048, 16, 80
+    q = torch.from_numpy(RNG.normal(size=(B, S, Kh, 1, hd))).to(
+        dev, torch.bfloat16)
+    k, v = (torch.from_numpy(RNG.normal(size=(B, S, Kh, hd))).to(
+        dev, torch.bfloat16) for _ in range(2))
+    qs = distribute(q, mesh1, rules.spec("batch", None, "kv_heads_act",
+                                         None, None))
+    ks, vs = (distribute(t, mesh1, rules.spec("batch", None, "kv_heads_act",
+                                              None)) for t in (k, v))
+    qp = tuple(qs.placements)
+    reset_launches()
+    out = on_shards(lambda *a: _flash_local(*a, causal=True, window=0,
+                                            softcap=0.0, impl="cuda"),
+                    (qs, ks, vs), (qp, tuple(ks.placements),
+                                   tuple(vs.placements)), qp)
+    assert launch_counts()["flash_attention"] == 1
+    assert isinstance(out, DTensor) and tuple(out.placements) == qp
+    want = flash_attention_ref(q, k, v, causal=True).float()
+    mass = flash_attention_ref(q.float(), k.float(), v.abs().float(),
+                               causal=True)
+    gap = (out.full_tensor().float() - want).abs()
+    assert bool((gap <= 2.0 ** -6 * (mass + want.abs())).all()), \
+        float((gap / (mass + want.abs())).max())
+    assert float(gap.norm() / want.norm()) <= 2.0 ** -6

@@ -129,6 +129,27 @@ def test_mamba_block_matches_reference(dtype):
     np.testing.assert_allclose(as_np(h), as_np(want_h), **tol)
 
 
+def test_reference_one_token_prefill_leaves_no_mamba_state():
+    """A 1-token prompt: one recurrence step from zero states, the same
+    output as the reference's, and, as the reference's
+    (``src/repro/models/mamba.py:171``), no (conv, h) state for decode
+    (ROADMAP "Known defects")."""
+    from repro.models.mamba import mamba_block as ref_block
+    from repro.models.layers import NO_RULES as REF_RULES
+    from repro_torch.models.layers import NO_RULES
+    from repro_torch.models.mamba import mamba_block
+    ref_cfg, cfg = cfgs("falcon-mamba-7b", compute_dtype="float32")
+    ref_p, p = params(ref_cfg)
+    ref_blk = jax.tree.map(lambda a: a[0], ref_p["blocks"]["pos0"]["mamba"])
+    blk = {k: v[0] for k, v in p["blocks"]["pos0"]["mamba"].items()}
+    x = np.random.default_rng(6).normal(size=(2, 1, cfg.d_model)).astype(
+        np.float32)
+    want, want_state = ref_block(jnp.asarray(x), ref_blk, ref_cfg, REF_RULES)
+    got, state = mamba_block(torch.from_numpy(x), blk, cfg, NO_RULES)
+    np.testing.assert_allclose(as_np(got), as_np(want), **FP32)
+    assert state is None and want_state is None
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba_block_hands_the_scan_compute_dtype_inputs(dtype, monkeypatch):
     """On the kernel route delta and x reach the scan in the compute dtype,
