@@ -121,7 +121,21 @@ Phases (any failure raises and the script exits non-zero):
    counted from 0 just before and added to the kernels line's.  Four ranks
    on the one card are not run: gloo's collectives on CUDA tensors do not
    carry DTensor there (PERF.md).
-7. The ``kernels`` JSON line, the card line and, last,
+7. LM dry run (``launch/dryrun.py``: a step traced on meta tensors, its
+   FLOPs, HBM bytes, collectives and live bytes counted op by op and
+   priced at the H100's data-sheet figures).  (a) Phase 5's stablelm-3b
+   step traced at a world of one, then run on the card under
+   ``FlopCounterMode``: params and opt state bytes equal, the traced peak
+   within DRYRUN_PEAK_RANGE of the card's, FLOPs within
+   DRYRUN_FLOPS_RTOL; its flash launches are counted from 0 just before
+   and added to the kernels line's.  (b) stablelm-3b ``train_4k`` at
+   16x16, mixtral-8x7b ``decode_32k`` at 2x16x16 and falcon-mamba-7b
+   ``prefill_32k`` at 16x16, each traced on the fake process group in a
+   process of its own, started before (a): one line a cell (trace
+   seconds, a device's argument and peak bytes, FLOPs, HBM and wire bytes
+   by kind, the three roofline terms, the bottleneck, the useful and
+   roofline fractions).
+8. The ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; exits non-zero without one, and without the repository's
@@ -661,15 +675,6 @@ FLASH_TOL_F32 = (2e-4, 2e-5)
 SCAN_TOL = (1e-4, 1e-4)
 
 
-def allowed_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
-    """(q, k) pairs the mask allows: the data-dependent part of the work."""
-    q = np.arange(Sq, dtype=np.int64)
-    hi = np.minimum(Skv - 1, q) if causal else np.full(Sq, Skv - 1)
-    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(Sq,
-                                                                  np.int64)
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
 def _check_close(label, got, want, tol) -> float:
     rtol, atol = tol
     err = float((got.float() - want.float()).abs().max()) if got.numel() \
@@ -681,9 +686,15 @@ def _check_close(label, got, want, tol) -> float:
 
 
 def _flash_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window, softcap,
-                dtype, library: bool, device: bool = False) -> dict:
+                dtype, library: bool, device: bool = False,
+                dispatch: bool = False) -> dict:
+    """``dispatch``: also time the launch itself (``flash_attention_cuda``)
+    against the wrapper's route through the registered op, in turns
+    (direct, op, op, direct)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import (allowed_pairs,
+                                                         flash_attention_cuda)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
@@ -709,6 +720,13 @@ def _flash_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window, softcap,
             qt, kt, vt, is_causal=causal, enable_gqa=G > 1))
     device_ms = (back_to_back_ms(lambda: flash_attention(
         q, k, v, impl="cuda", **kw)) if device else None)
+    turns = ""
+    if dispatch:
+        direct = lambda: flash_attention_cuda(q, k, v, **kw)
+        via_op = lambda: flash_attention(q, k, v, impl="cuda", **kw)
+        t = [time_ms(f) for f in (direct, via_op, via_op, direct)]
+        turns = (f" direct_ms={t[0]:.4f},{t[3]:.4f} "
+                 f"op_ms={t[1]:.4f},{t[2]:.4f}")
     pairs = allowed_pairs(Sq, Skv, causal, window)
     flops = 4 * B * Kh * G * hd * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -720,7 +738,7 @@ def _flash_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window, softcap,
         f"hd={hd} causal={causal} window={window} softcap={softcap} "
         f"{str(dtype).split('.')[-1]} pairs={pairs} max_abs_err={err:.3g} "
         f"tol={tol} ms={ms:.4f}"
-        f"{f' device_ms={device_ms:.4f}' if device else ''} "
+        f"{f' device_ms={device_ms:.4f}' if device else ''}{turns} "
         f"plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={bnd:.4f} ({by}) "
         f"tflops={flops / ms / 1e9:.2f} share_of_bound={bnd / ms:.4f} "
         f"bit_stable=True")
@@ -740,7 +758,7 @@ def phase_flash_attention(gen) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     shape = (4, 2048, 2048, 32, 1, 80, True, 0, 0.0)
     main = _flash_case("stablelm-3b prefill, bf16 tensor cores", gen, *shape,
-                       bf16, library=True)
+                       bf16, library=True, dispatch=True)
     fp32 = _flash_case("stablelm-3b prefill, fp32 FMA", gen, *shape, f32,
                        library=True)
     main.update({f"fp32_{k}": fp32[k] for k in ("ms", "plain_ms",
@@ -2565,6 +2583,163 @@ def phase_sharded_lm(dev: torch.device, backend: str = "nccl") -> int:
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+#  Phase 7: the dry run
+# ---------------------------------------------------------------------------
+#: 7(a): the traced step's peak against the card's within this range, its
+#: FLOPs against FlopCounterMode over the real step within DRYRUN_FLOPS_RTOL
+DRYRUN_PEAK_RANGE = (0.8, 1.25)
+DRYRUN_FLOPS_RTOL = 0.01
+#: 7(b): production cells traced on the fake process group, each in a
+#: process of its own (arch, shape, multi-pod)
+DRYRUN_CELLS = (("stablelm-3b", "train_4k", False),
+                ("mixtral-8x7b", "decode_32k", True),
+                ("falcon-mamba-7b", "prefill_32k", False))
+DRYRUN_CELL_PROG = """
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+rec = run_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[3] == "1",
+               verbose=False, save=False)
+print("DRYRUN_RECORD " + json.dumps(rec))
+"""
+
+
+def start_dryrun_cells() -> list:
+    """Phase 7(b)'s processes, started before 7(a) so that they trace on
+    the host's cores while the card runs."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CELL_PROG, cell[0], cell[1],
+         "1" if cell[2] else "0"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT))
+        for cell in DRYRUN_CELLS]
+
+
+def _dryrun_terms(r: dict) -> str:
+    return (f"t_compute {r['t_compute_s'] * 1e3:.2f} ms, t_memory "
+            f"{r['t_memory_s'] * 1e3:.2f} ms, t_collective "
+            f"{r['t_collective_s'] * 1e3:.2f} ms, bottleneck "
+            f"{r['bottleneck']}, useful {r['useful_flops_fraction']:.4f}, "
+            f"roofline {r['roofline_fraction']:.4f}")
+
+
+def phase_dryrun(dev: torch.device, procs: list) -> int:
+    """Phase 7.  (a) phase 5's stablelm-3b step (8 x 2048 in 4
+    microbatches, fp32 state) traced on meta tensors at a world of one
+    (``launch.dryrun.trace_step``), then run on the card from seed 0 under
+    ``FlopCounterMode``: the traced params and opt state bytes must equal
+    the card's exactly, the traced peak lie within DRYRUN_PEAK_RANGE of
+    ``torch.cuda.max_memory_allocated`` over the step, and the traced
+    FLOPs within DRYRUN_FLOPS_RTOL of the counted ones.  (b) the
+    DRYRUN_CELLS, traced on the fake process group at 256 or 512 ranks in
+    ``procs`` (``start_dryrun_cells``), one line a cell.  Returns the
+    flash launches of the real step, counted from 0 just before it."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import (InputPipeline, PipelineConfig,
+                                  make_lm_batch_fn)
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.dryrun import record, trace_step
+    from repro_torch.launch.train import build_state, to_device
+    from repro_torch.train.optimizer import OptConfig, tree_leaves
+    from repro_torch.train.train_step import make_train_step
+    t0 = time.perf_counter()
+    spec = TRAIN["stablelm-3b"]
+    cfg = get_config("stablelm-3b").replace(grad_accum=spec["grad_accum"])
+    shape = ShapeConfig("phase5", TRAIN_SEQ, spec["batch"], "train",
+                        grad_accum=spec["grad_accum"])
+    res = trace_step(cfg, shape)
+    rec = record(res, cfg, shape, 1)
+    mem, roof = rec["memory"], rec["roofline"]
+
+    blocks = iter(InputPipeline(PipelineConfig(
+        seq_len=TRAIN_SEQ, global_batch=spec["batch"],
+        vocab_size=cfg.vocab_size, docs_per_window=max(spec["batch"] * 16,
+                                                      512), seed=0)))
+    batch = to_device(make_lm_batch_fn(cfg)(next(blocks)), dev)
+    params, opt = build_state(cfg, 0, dev)
+    state = sum(t.numel() * t.element_size()
+                for t in tree_leaves(params) + tree_leaves(opt))
+    step = make_train_step(cfg, OptConfig(total_steps=10, warmup_steps=1))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        params, opt, metrics = step(params, opt, batch)
+        loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    launches = launch_counts()["flash_attention"]
+    card_peak = torch.cuda.max_memory_allocated()
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    traced_state = (mem["argument_bytes_by_kind"]["params"]
+                    + mem["argument_bytes_by_kind"]["opt_state"])
+    ratio = mem["peak_bytes_per_device"] / card_peak
+    flops, counted = roof["flops_per_device"], fc.get_total_flops()
+    gap = _rel(flops, counted)
+    gib = 2 ** 30
+    log(f"  (a) stablelm-3b, phase 5's step ({spec['batch']} x {TRAIN_SEQ}"
+        f" in {spec['grad_accum']} microbatches, fp32 state) at a world of "
+        f"one: trace {res['trace_s']:.1f}s; params + opt state traced "
+        f"{traced_state} B, card {state} B "
+        f"({'equal' if traced_state == state else 'DIFFERENT'}); peak "
+        f"traced {mem['peak_bytes_per_device'] / gib:.2f} GiB (args "
+        f"{mem['argument_bytes'] / gib:.2f} + trace "
+        f"{mem['trace_peak_bytes'] / gib:.2f}), card "
+        f"{card_peak / gib:.2f} GiB, ratio {ratio:.4f} (range "
+        f"{DRYRUN_PEAK_RANGE}); FLOPs traced {flops:.6e}, FlopCounterMode "
+        f"{counted:.6e}, rel gap {gap:.3g} (tolerance {DRYRUN_FLOPS_RTOL});"
+        f" HBM bytes traced {roof['bytes_per_device']:.4e}; "
+        f"{_dryrun_terms(roof)}; the card's step under FlopCounterMode "
+        f"{step_s:.2f}s, loss {loss:.6f}, flash launches {launches}; card: "
+        f"{card_line()}")
+    if traced_state != state:
+        raise AssertionError(f"dry run: traced params + opt state "
+                             f"{traced_state} B, the card's {state} B")
+    if not DRYRUN_PEAK_RANGE[0] <= ratio <= DRYRUN_PEAK_RANGE[1]:
+        raise AssertionError(f"dry run: traced peak {ratio:.4f}x the "
+                             f"card's, outside {DRYRUN_PEAK_RANGE}")
+    if gap > DRYRUN_FLOPS_RTOL:
+        raise AssertionError(f"dry run: traced FLOPs {flops:.6e} against "
+                             f"{counted:.6e} counted on the card")
+    per_step = cfg.n_layers * cfg.grad_accum * 2
+    if launches != per_step:
+        raise AssertionError(f"dry run: the real step launched flash "
+                             f"{launches} times, expected {per_step}")
+
+    failed = []
+    for (arch, shp, multi), proc in procs:
+        out, err = proc.communicate(timeout=900)
+        line = next((x for x in out.splitlines()
+                     if x.startswith("DRYRUN_RECORD ")), None)
+        if proc.returncode != 0 or line is None:
+            failed.append(f"{arch} {shp}")
+            log(f"  (b) {arch} x {shp}: FAILED (exit {proc.returncode})\n"
+                f"{err[-3000:]}")
+            continue
+        r = json.loads(line.split(" ", 1)[1])
+        m, ro = r["memory"], r["roofline"]
+        wire = ", ".join(
+            f"{k} {v:.4e} B ({int(ro['collective_count_by_kind'][k])})"
+            for k, v in sorted(ro["collective_bytes_by_kind"].items()))
+        log(f"  (b) [{r['mesh']}] {arch} x {shp}: trace {r['trace_s']}s; "
+            f"a device: args {m['argument_bytes'] / gib:.2f} GiB, peak "
+            f"{m['peak_bytes_per_device'] / gib:.2f} GiB (of "
+            f"{m['hbm_bytes'] / 1e9:.0f} GB); FLOPs "
+            f"{ro['flops_per_device']:.4e}, HBM bytes "
+            f"{ro['bytes_per_device']:.4e}, wire bytes "
+            f"{ro['collective_bytes_per_device']:.4e} [{wire}]; "
+            f"{_dryrun_terms(ro)}")
+    if failed:
+        raise AssertionError(f"dry run: cells failed: {failed}")
+    log(f"dry-run phase wall: {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2682,7 +2857,13 @@ def main() -> int:
     sharded_lm = phase_sharded_lm(gen.device)
     launches["flash_attention"] += sharded_lm
 
-    # ---- phase 7: result lines
+    # ---- phase 7: the dry run: a traced step against the card's, then
+    # production cells on the fake process group in their own processes
+    log("LM dry run (meta tensors, H100 data-sheet roofline):")
+    dry_procs = start_dryrun_cells()
+    launches["flash_attention"] += phase_dryrun(gen.device, dry_procs)
+
+    # ---- result lines
     sources = {"hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
                               "src/repro/kernels/hash_join/kernel.py:68"),
                "radix_groupby": ("src/repro_torch/csrc/radix_groupby.cu",
@@ -2713,7 +2894,8 @@ def main() -> int:
             row["sharded_note"] = (
                 "launches include the sharded phase's: stablelm-3b on a 1x1 "
                 "nccl mesh, 2 train steps (a launch a layer a microbatch, "
-                "forward and remat recompute) and one 4 x 2048 prefill")
+                "forward and remat recompute) and one 4 x 2048 prefill; and "
+                "the dry-run phase's real stablelm-3b step (256)")
         if name in trained:
             row["train_note"] = (
                 f"launches include {trained[name][0]} from training (two "

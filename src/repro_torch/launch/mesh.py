@@ -5,8 +5,11 @@ caller initialised (``torchrun`` and ``init_distributed``, or a test's
 spawned ranks), named ``("data", "model")`` or ``("data",)``.
 ``make_production_mesh`` keeps only the production meshes' shapes and
 names: the sharding specs are computed from them without 256 processes.
+``make_fake_mesh`` / ``make_fake_production_mesh`` build a real
+``DeviceMesh`` at the production world size over torch's fake process
+group, on which ``launch/dryrun.py`` traces a step on meta tensors.
 The reference's TPU v5e roofline constants are not carried over: the H100
-figures the port measures against live in ``chip_smoke.py`` and PERF.md.
+figures live in ``launch/roofline.py``, ``chip_smoke.py`` and PERF.md.
 """
 from __future__ import annotations
 
@@ -40,6 +43,47 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     if multi_pod:
         return MeshShape((2, 16, 16), ("pod", "data", "model"))
     return MeshShape((16, 16), ("data", "model"))
+
+
+def make_fake_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]
+                   ) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``prod(shape)`` ranks of torch's fake process
+    group (``torch.testing._internal.distributed.fake_pg``, an internal
+    module imported here only): this process is rank 0 and no other rank
+    exists; every collective returns at once without moving data. For
+    DTensors over meta tensors (``launch/dryrun.py``). The mesh is built
+    as a 'cpu' one (a 'cuda' one would claim a card) and then named a
+    'cuda' one: DTensor chooses some collectives by the name, and on a
+    'cpu' mesh it replaces each all-to-all by an all-gather (gloo has no
+    all-to-all), which the card's NCCL ranks would not run. Refuses to
+    start when a real process group is initialised; a fake one of another
+    world size is replaced."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    n = 1
+    for s in shape:
+        n *= s
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"make_fake_mesh: a {dist.get_backend()!r} process group is "
+                f"initialised; the fake group is process-global, so trace in "
+                f"a process of its own")
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+    mesh._device_type = "cuda"
+    return mesh
+
+
+def make_fake_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """``make_production_mesh``'s shape as a ``make_fake_mesh``: world 256,
+    ("data", "model") 16x16; multi-pod world 512, ("pod", "data",
+    "model") 2x16x16."""
+    m = make_production_mesh(multi_pod=multi_pod)
+    return make_fake_mesh(tuple(m.shape.values()), m.axis_names)
 
 
 def init_distributed(backend: Optional[str] = None,

@@ -122,12 +122,38 @@ def on_shards(fn, args, in_placements, out_placements):
         Partial() if split[j] and isinstance(pl, Replicate) else pl
         for j, pl in enumerate(p)] for p in in_placements)
     return local_map(
-        fn, out_placements=(list(out_placements) if single
+        functools.partial(_contiguous_grads, fn),
+        out_placements=(list(out_placements) if single
                             else tuple(list(o) for o in outs)),
         in_placements=tuple(None if p is None else list(p)
                             for p in in_placements),
         in_grad_placements=grads, device_mesh=mesh,
         redistribute_inputs=True)(*args)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes its gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _contiguous_grads(fn, *args):
+    """``fn(*args)`` on local tensors, each input's gradient made
+    contiguous: ``local_map`` wraps it in a DTensor whose strides are the
+    contiguous ones of its global shape, and a later DTensor reshape that
+    takes a view by those strides fails on a local gradient in another
+    layout (the einsums' backward inside the kernels' plain backward, at
+    one kv head a rank)."""
+    if torch.is_grad_enabled():
+        args = tuple(_ContiguousGrad.apply(a) if isinstance(a, torch.Tensor)
+                     and a.requires_grad else a for a in args)
+    return fn(*args)
 
 
 NO_RULES = Rules()
@@ -286,27 +312,27 @@ def attn_block(x: torch.Tensor, kv_src: torch.Tensor,
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
-    q = q.reshape(B, Sq, kh, G, hd)
-    k = k.reshape(B, kv_src.shape[1], kh, hd)
-    v = v.reshape(B, kv_src.shape[1], kh, hd)
+    # the queries grouped by the kv heads after their repeat (kv_repeat
+    # r: each kv head repeated r times, its G queries split r ways): the
+    # same GQA, a view of the same (kh, G) order
+    r = cfg.kv_repeat
+    q = reshape(q, (B, Sq, kh * r, G // r, hd))
+    k = reshape(k, (B, kv_src.shape[1], kh, hd))
+    v = reshape(v, (B, kv_src.shape[1], kh, hd))
     q = rules.cons(q, "batch", None, "kv_heads_act", None, None)
     k = rules.cons(k, "batch", None, "kv_heads_act", None)
     v = rules.cons(v, "batch", None, "kv_heads_act", None)
 
     if use_rope:
-        q = apply_rope(q.reshape(B, Sq, kh * G, hd), q_pos, cfg.rope_theta
-                       ).reshape(B, Sq, kh, G, hd)
+        q = apply_rope(q.reshape(B, Sq, h, hd), q_pos, cfg.rope_theta
+                       ).reshape(B, Sq, kh * r, G // r, hd)
         k = apply_rope(k, kv_pos, cfg.rope_theta)
 
-    r = cfg.kv_repeat
     if r > 1:
-        # each kv head repeated r times, queries regrouped: the same GQA
         k = k.repeat_interleave(r, dim=2)
         v = v.repeat_interleave(r, dim=2)
-        q = q.reshape(B, Sq, kh * r, G // r, hd)
         k = rules.cons(k, "batch", None, "kv_heads_act", None)
         v = rules.cons(v, "batch", None, "kv_heads_act", None)
-        q = rules.cons(q, "batch", None, "kv_heads_act", None, None)
 
     if kv_cache is not None:
         k_cache, v_cache = kv_cache
@@ -361,6 +387,50 @@ def attn_block(x: torch.Tensor, kv_src: torch.Tensor,
     out = out.reshape(B, Sq, h * hd) @ p["wo"].to(cdt)
     out = rules.cons(out, "batch", None, None)
     return out, new_cache
+
+
+def reshape(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x.reshape(shape)``.  On a DTensor, a sharded dim that the reshape
+    splits into several is first gathered over the mesh dims that shard it
+    unless the first part of the split divides over them: DTensor cannot
+    split it then (mixtral's 8 kv heads over 'model' 16; a microbatch of
+    16 sequences over 32 data ranks), where GSPMD reshards by itself."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    sizes = tuple(shape)
+    gather = set()
+    for j, first in _split_dims(tuple(x.shape), sizes).items():
+        mdims = [i for i, pl in enumerate(x.placements)
+                 if isinstance(pl, Shard) and pl.dim == j]
+        if mdims and first % math.prod(x.device_mesh.size(i)
+                                       for i in mdims):
+            gather.update(mdims)
+    if gather:
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if i in gather else pl
+            for i, pl in enumerate(x.placements)])
+    return x.reshape(sizes)
+
+
+def _split_dims(src, dst):
+    """{dim of ``src``: the size of the first of the dims of ``dst`` it is
+    split into}, for each dim a reshape from ``src`` to ``dst`` splits."""
+    out, i, k = {}, 0, 0
+    while i < len(src) and k < len(dst):
+        gi, gk, a, b = [i], [k], src[i], dst[k]
+        while a != b:
+            if a < b:
+                i += 1
+                a *= src[i]
+                gi.append(i)
+            else:
+                k += 1
+                b *= dst[k]
+                gk.append(k)
+        if len(gi) == 1 and len(gk) > 1:
+            out[gi[0]] = next((dst[q] for q in gk if dst[q] != 1), 1)
+        i, k = i + 1, k + 1
+    return out
 
 
 def _cache_sdpa(q, k_cache, v_cache, mask, *, cdt, softcap):

@@ -22,6 +22,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Shard
 
 from ..kernels.mamba_scan import mamba_scan, mamba_scan_chunked
 from .layers import Rules, dt, on_shards
@@ -71,12 +72,24 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
     else:
         xconv = on_shards(_causal_conv, (xin, conv_w), (chan, w_pl), chan)
         h0 = None                                     # zeros on each rank
-        new_conv_state = xin[:, -(K - 1):]            # for prefill -> decode
+        # for prefill -> decode; a copy: a view would hold the whole
+        # sequence's xin until the sharded prefill stacks its caches
+        new_conv_state = xin[:, -(K - 1):].clone()
     xconv = F.silu(xconv + p["conv_b"].to(cdt))
 
     # input-dependent dt, B, C
-    # the channels' parts summed here: delta, B and C need the whole sums
-    dbc = rules.cons(xconv @ p["x_proj"].to(cdt), "batch", None, None)
+    # the channels' parts summed here: delta, B and C need the whole sums.
+    # Each rank's part is its own local product: DTensor's rule for it
+    # splits the rows of its backward over the data axes, which a
+    # microbatch smaller than them (16 sequences over 32 ranks) cannot
+    # take back to [B, S, .]
+    xp = p["x_proj"].to(cdt)
+    part = (None if chan is None else
+            tuple(Partial() if isinstance(pl, Shard) and pl.dim == 2 else pl
+                  for pl in chan))
+    dbc = on_shards(torch.matmul, (xconv, xp),
+                    (chan, rules.placements(xp, "d_inner", None)), part)
+    dbc = rules.cons(dbc, "batch", None, None)
     dt_in, B_in, C_in = torch.split(dbc, [dtr, N, N], dim=-1)
     delta = F.softplus(dt_in @ p["dt_proj"].to(cdt) + p["dt_bias"].to(cdt))
     A = -torch.exp(p["A_log"].float())                # [di, N]

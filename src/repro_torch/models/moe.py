@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import Partial, Replicate, Shard
 
-from .layers import Rules, dt, on_shards
+from .layers import Rules, dt, on_shards, reshape
 
 
 def _capacity(group_size: int, k: int, n_experts: int, factor: float) -> int:
@@ -136,7 +136,7 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
         xt = F.pad(xt, (0, 0, 0, pad))
         valid = F.pad(valid, (0, pad))
     Gn = xt.shape[0] // Gs
-    xg = xt.reshape(Gn, Gs, d)
+    xg = reshape(xt, (Gn, Gs, d))
     vg = valid.reshape(Gn, Gs)
     xg = rules.cons(xg, "batch", None, None)
     C = _capacity(Gs, k, E, cfg.capacity_factor)
@@ -165,7 +165,8 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
     out = out.reshape(Gn * Gs, d)
     if pad:
         out = out[:T]
-    out = rules.cons(out.reshape(B, S, d).to(x.dtype), "batch", None, None)
+    out = rules.cons(reshape(out, (B, S, d)).to(x.dtype), "batch", None,
+                     None)
 
     # load-balance aux loss (mean over groups): E * sum_e f_e * P_e; padded
     # tokens count in P_e, as in the reference

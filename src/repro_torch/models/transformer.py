@@ -55,8 +55,8 @@ from torch.distributed.tensor import zeros as dtensor_zeros
 from torch.utils.checkpoint import checkpoint
 
 from .layers import (NO_RULES, Rules, attn_block, dt, implicit_replication,
-                     mlp_block, normal_init, on_shards, rms_norm, sdpa,
-                     write_rows)
+                     mlp_block, normal_init, on_shards, reshape, rms_norm,
+                     sdpa, write_rows)
 from .mamba import mamba_block
 from .moe import moe_block
 
@@ -401,7 +401,7 @@ def _cross_with_cache(hx, xk, xv, p, cfg):
     B, Sq, _ = hx.shape
     h_, kh, hd = cfg.n_heads, cfg.kh_eff, cfg.hd
     cdt = dt(cfg.compute_dtype)
-    q = (hx.to(cdt) @ p["wq"].to(cdt)).reshape(B, Sq, kh, h_ // kh, hd)
+    q = reshape(hx.to(cdt) @ p["wq"].to(cdt), (B, Sq, kh, h_ // kh, hd))
     mask = torch.ones((1, 1, 1, Sq, xk.shape[1]), dtype=torch.bool,
                       device=hx.device)
     out = sdpa(q, xk.to(cdt), xv.to(cdt), mask, 0.0)

@@ -1088,3 +1088,39 @@ def test_flash_on_local_shards_matches_plain(dev, mesh1):
     assert bool((gap <= 2.0 ** -6 * (mass + want.abs())).all()), \
         float((gap / (mass + want.abs())).max())
     assert float(gap.norm() / want.norm()) <= 2.0 ** -6
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dryrun_kernel_ops_equal_the_direct_launches(dev, dtype):
+    """The registered ops the models call on the card
+    (``torch.ops.repro_torch.flash_attention`` / ``mamba_scan``, whose fake
+    implementations ``launch/dryrun.py`` traces on meta tensors) launch
+    the same kernels: bit-identical to the direct calls, one launch each,
+    and counted by ``FlopCounterMode`` through their formulas."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.mamba_scan import ops as so
+
+    def rand(*shape, dt=dtype):
+        return torch.from_numpy(RNG.normal(size=shape)).to(dev, dt)
+    q, k, v = rand(2, 200, 2, 3, 64), rand(2, 200, 2, 64), rand(2, 200, 2,
+                                                                 64)
+    reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        a = torch.ops.repro_torch.flash_attention(q, k, v, True, 64, 0.0)
+    b = fo.flash_attention_cuda(q, k, v, causal=True, window=64)
+    assert launch_counts()["flash_attention"] == 2
+    assert _same(a, b)
+    assert fc.get_total_flops() == 4 * 2 * 2 * 3 * 64 * fo.allowed_pairs(
+        200, 200, True, 64)
+    Bt, T, d, N = 2, 96, 40, 16
+    scan_in = (rand(Bt, T, d).abs() * 0.1, rand(Bt, T, d),
+               rand(Bt, T, N, dt=torch.float32),
+               rand(Bt, T, N, dt=torch.float32),
+               -rand(d, N, dt=torch.float32).abs(),
+               rand(Bt, d, N, dt=torch.float32))
+    reset_launches()
+    y1, h1 = torch.ops.repro_torch.mamba_scan(*scan_in)
+    y2, h2 = so.mamba_scan_cuda(*scan_in)
+    assert launch_counts()["mamba_scan"] == 2
+    assert _same(y1, y2) and _same(h1, h2)
