@@ -9,8 +9,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Setup: torch/CUDA versions, the card's name and power limit, and the
    build of every ``src/repro_torch/csrc/*.cu`` kernel (timed), with each
-   flash, selective-scan and hash-probe entry point's registers and spills
-   as ``ptxas`` reports them.
+   flash, selective-scan (with and without carries), hash-probe and
+   backward entry point's registers and spills as ``ptxas`` reports them.
 2. Kernels: each hand-written kernel against its plain torch version on the
    card, at the shapes its main path gives it (SSB scale factor 1 for the
    ETL kernels; stablelm-3b and falcon-mamba-7b prefill for flash attention
@@ -32,7 +32,14 @@ Phases (any failure raises and the script exits non-zero):
    slows later launches on the host).  fp32 flash attention runs
    at every head dim.  The grouped sums also run at the sharded runs'
    shapes: a shard's Q4.1, Q1.1 and supplier partials and the mesh
-   combiner's sums.
+   combiner's sums.  The two backward kernels (training's gradients) at
+   the trained models' microbatch shapes (flash: stablelm-3b's [2, 2048,
+   32, 80] bf16, causal, beside scaled_dot_product_attention's forward +
+   backward; the scan: falcon-mamba-7b's Bt 1, T 2048, d 8192, N 16 with
+   bf16 delta/x, its lane splits timed) and at the card tests' shapes,
+   each against its plain version from the forward kernel's own output and
+   log-sum-exp or carries, twice (bit-identical), with its median time,
+   device time, bound and the plain version's time.
 3. ETL main path: SSB scale factor 1 (seed 42) through
    ``repro_torch.Session.run`` on backend ``torch`` with segment fusion:
    Q4.1 on the optimized and streaming engines, Q4.1s (Q4.1 cut into two
@@ -94,17 +101,19 @@ Phases (any failure raises and the script exits non-zero):
 5. LM training path.  Gradient route checks at full width and 2 layers
    of stablelm-3b and falcon-mamba-7b: one microbatch through
    ``forward_train`` and its backward on the kernel route (the kernels'
-   forwards through their autograd Functions, the plain versions'
-   gradients) and the plain route in bf16, against the fp32 plain route:
+   autograd Functions: the forward kernels, then the backward kernels) and
+   the plain route in bf16, against the fp32 plain route:
    loss, global and per-leaf gradient norms within phase 4's BF16_MARGIN
    rule.  Then stablelm-3b whole (2.795e9 parameters, fp32 params, grads
    and AdamW moments: 41.7 GiB) and falcon-mamba-7b at 8 of 64 layers
    through ``launch.train.train_loop``, twice from seed 0: finite losses,
-   step 0 within 10% of ln(vocab), the kernel launched twice a layer a
-   microbatch (forward and remat recompute), the second run's losses
-   within RERUN_RTOL; step ms, tokens/s, 6·N·tokens / step time against
-   the bf16 peak, peak memory, a microbatch's forward/backward split and
-   the Functions' plain backward at one layer's shape.  Then resume at
+   step 0 within 10% of ln(vocab), the forward kernel launched twice a
+   layer a microbatch (forward and remat recompute) and the backward
+   kernel once, the second run's losses within RERUN_RTOL (and whether
+   they are bit-identical); step ms, tokens/s, 6·N·tokens / step time
+   against the bf16 peak, peak memory, a microbatch's forward/backward
+   split and, at one layer's shape, the forward kernel, the backward
+   kernel through the Function and the plain backward.  Then resume at
    the stablelm smoke config: 2 steps, a checkpoint, 2 resumed steps
    equal to 4 straight ones.  ``--profile``: one stablelm-3b train step
    under the profiler.
@@ -114,7 +123,8 @@ Phases (any failure raises and the script exits non-zero):
    2048 in 4 microbatches, seed 0) through ``sharded_train_step`` against
    two of the unsharded ``make_train_step`` from the same seed: losses and
    global grad norms within SHARD_RTOL (bit-identity reported), step ms of
-   both, flash launched twice a layer a microbatch.  Then a 4 x 2048
+   both, flash launched twice a layer a microbatch and its backward once.
+   Then a 4 x 2048
    prefill (``prefill`` profile) and 4 decode steps (``decode`` profile)
    through ``sharded_serve_steps`` against the unsharded serve steps on
    the same weights, logits within SHARD_RTOL.  The flash launches are
@@ -127,8 +137,8 @@ Phases (any failure raises and the script exits non-zero):
    step traced at a world of one, then run on the card under
    ``FlopCounterMode``: params and opt state bytes equal, the traced peak
    within DRYRUN_PEAK_RANGE of the card's, FLOPs within
-   DRYRUN_FLOPS_RTOL; its flash launches are counted from 0 just before
-   and added to the kernels line's.  (b) stablelm-3b ``train_4k`` at
+   DRYRUN_FLOPS_RTOL; its flash launches (forward and backward) are
+   counted from 0 just before and added to the kernels line's.  (b) stablelm-3b ``train_4k`` at
    16x16, mixtral-8x7b ``decode_32k`` at 2x16x16 and falcon-mamba-7b
    ``prefill_32k`` at 16x16, each traced on the fake process group in a
    process of its own, started before (a): one line a cell (trace
@@ -298,23 +308,56 @@ def probe_ptxas(build_log: str) -> None:
 
 def scan_ptxas(build_log: str) -> None:
     """Print each selective-scan instance's registers and spills (delta/x
-    dtype, state bucket, lanes a channel); none may spill (the wrapper
-    picks the lanes from the shape, so every instance is on some path)."""
+    dtype, state bucket, lanes a channel, whether it saves carries for
+    training); none may spill (the wrapper picks the lanes from the shape,
+    so every instance is on some path)."""
     rows = []
     for name, (regs, spills) in ptxas_entries(build_log).items():
-        m = re.search(r"mamba_scan_kernelI([ft])Li(\d+)ELi(\d+)E", name)
+        m = re.search(r"mamba_scan_kernelI([ft])Li(\d+)ELi(\d+)ELb([01])E",
+                      name)
         if m:
             rows.append(("bf16" if m.group(1) == "t" else "fp32",
-                         int(m.group(2)), int(m.group(3)), regs, spills))
+                         int(m.group(2)), int(m.group(3)),
+                         " with carries" if m.group(4) == "1" else "", regs,
+                         spills))
     if not rows:
         log("  scan ptxas: no report (the library was already built)")
         return
-    for dtype, ns, lanes, regs, spills in sorted(rows):
-        log(f"  scan ptxas: {dtype} N<={ns} lanes {lanes}: {regs} registers "
-            f"a thread, {spills} bytes of spills")
+    for dtype, ns, lanes, carries, regs, spills in sorted(rows):
+        log(f"  scan ptxas: {dtype} N<={ns} lanes {lanes}{carries}: {regs} "
+            f"registers a thread, {spills} bytes of spills")
         if spills:
-            raise AssertionError(f"mamba_scan {dtype} N<={ns} lanes {lanes} "
-                                 f"spills {spills} bytes")
+            raise AssertionError(f"mamba_scan {dtype} N<={ns} lanes {lanes}"
+                                 f"{carries} spills {spills} bytes")
+
+
+def backward_ptxas(build_log: str) -> None:
+    """Print each backward kernel's registers and spills (flash: the bf16
+    tensor-core and fp32 dK/dV and dQ kernels by head dim; the scan: by
+    dtype, state bucket and lanes); neither the bf16 flash kernels at the
+    trained head dims (80: stablelm-3b; 128) nor any scan instance (the
+    wrapper picks the lanes from the shape) may spill."""
+    rows = []
+    for name, (regs, spills) in ptxas_entries(build_log).items():
+        m = re.search(r"flash_bwd_(dkdv|dq)_(kernel|f32)ILi(\d+)E", name)
+        if m:
+            bf16 = m.group(2) == "kernel"
+            rows.append((f"flash {m.group(1)} {'bf16' if bf16 else 'fp32'}",
+                         f"hd {m.group(3)}", regs, spills,
+                         bf16 and m.group(3) in ("80", "128")))
+        m = re.search(r"mamba_scan_bwd_kernelI([ft])Li(\d+)ELi(\d+)E", name)
+        if m:
+            rows.append((f"scan {'bf16' if m.group(1) == 't' else 'fp32'}",
+                         f"N<={m.group(2)} lanes {m.group(3)}", regs, spills,
+                         True))
+    if not rows:
+        log("  backward ptxas: no report (the library was already built)")
+        return
+    for kind, shape, regs, spills, strict in sorted(rows):
+        log(f"  backward ptxas: {kind} {shape}: {regs} registers a thread, "
+            f"{spills} bytes of spills")
+        if strict and spills:
+            raise AssertionError(f"{kind} {shape} spills {spills} bytes")
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -833,7 +876,7 @@ def _scan_inputs(gen, Bt, T, d, N, zero_h0, dtype=torch.float32):
 
 
 def _scan_case(label, gen, Bt, T, d, N, zero_h0=False,
-               dtype=torch.float32) -> dict:
+               dtype=torch.float32, device: bool = False) -> dict:
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_ref
     args = _scan_inputs(gen, Bt, T, d, N, zero_h0, dtype)
     y, hT = mamba_scan(*args, impl="cuda")
@@ -852,6 +895,8 @@ def _scan_case(label, gen, Bt, T, d, N, zero_h0=False,
                                  f"from the widened ones")
     del y2, hT2, y_r, hT_r
     ms = time_ms(lambda: mamba_scan(*args, impl="cuda"))
+    device_ms = (back_to_back_ms(lambda: mamba_scan(*args, impl="cuda"))
+                 if device else None)
     plain_ms = time_ms(lambda: mamba_scan_ref(*args), iters=3, warmup=1)
     # bytes at the dtypes passed (inputs read once, y and hT written once)
     # against one exp2 a (b, t, c, n)
@@ -860,12 +905,16 @@ def _scan_case(label, gen, Bt, T, d, N, zero_h0=False,
     bnd, by = bound_ms(nbytes, Bt * T * d * N, PEAK_EX2_S)
     log(f"  mamba_scan[{label}]: Bt={Bt} T={T} d={d} N={N} "
         f"{str(dtype).split('.')[-1]} max_abs_err={err:.3g} tol={SCAN_TOL} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none "
+        f"ms={ms:.4f}{f' device_ms={device_ms:.4f}' if device else ''} "
+        f"plain_ms={plain_ms:.4f} library_ms=none "
         f"bound_ms={bnd:.4f} ({by}) GB/s={nbytes / ms / 1e6:.1f} "
         f"share_of_bound={bnd / ms:.4f} bit_stable=True"
         + (" same_as_widened=True" if dtype == torch.bfloat16 else ""))
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
-                bound_by=by, max_abs_err=err)
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
+               bound_by=by, max_abs_err=err)
+    if device:
+        out["device_ms"] = device_ms
+    return out
 
 
 def scan_lanes(gen, Bt, T, d, N, dtype) -> dict:
@@ -905,7 +954,7 @@ def phase_mamba_scan(gen) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     shape = (4, 2048, 8192, 16)
     main = _scan_case("falcon-mamba-7b prefill, bf16 delta/x", gen, *shape,
-                      zero_h0=True, dtype=bf16)
+                      zero_h0=True, dtype=bf16, device=True)
     fp32 = _scan_case("falcon-mamba-7b prefill, fp32 delta/x", gen, *shape,
                       zero_h0=True, dtype=f32)
     main.update({f"fp32_{k}": fp32[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -934,6 +983,291 @@ def phase_mamba_scan(gen) -> dict:
                                  f"from the full scan")
         log(f"  mamba_scan[continuation {name}]: Bt=2 T=200+312 d=1024 N=16 "
             f"bit-identical to the full scan")
+    return main
+
+
+# ---------------------------------------------------------------------------
+#  Phase 2, the backward kernels
+# ---------------------------------------------------------------------------
+#: fp32 flash backward: fp32 sums in other orders (the card tests'); bf16
+#: takes FLASH_TOL_BF16 (P and dS rounded to bf16 for the tensor cores,
+#: each gradient rounded to bf16)
+FLASH_BWD_TOL_F32 = (1e-4, 1e-5)
+#: the bf16 flash backward is also held by relative norm: on every tile of
+#: 64 rows along the sequence (keys for dK and dV, queries for dQ),
+#: ||got - want|| / ||want|| within this.  Most dK and dV elements at S
+#: 2048 are far below FLASH_TOL_BF16's atol, so the elementwise check
+#: alone would pass a kernel that dropped query tiles for late keys
+FLASH_BWD_REL_BF16 = 1e-2
+#: the scan's gradients whose elements sum many products (dB and dC over
+#: the d channels, dA over Bt * T steps) are held within SCAN_TOL's rtol
+#: plus its atol times the gradient's largest value: either side's fp32
+#: rounding scales with the products, not with the sum
+SCAN_LONG_SUMS = ("B", "C", "A")
+
+
+def rel_gaps(got, want, tile: int = 64) -> tuple:
+    """(||got - want|| / ||want|| over the whole tensor, the largest of it
+    over tiles of ``tile`` rows along dim 1).  A tile where ``want`` is
+    all zero counts 0 if ``got`` is too, else inf."""
+    diff = (got.double() - want.double()).square().transpose(0, 1)
+    ref = want.double().square().transpose(0, 1)
+    n = diff.shape[0]
+    dsq, wsq = (torch.nn.functional.pad(t.reshape(n, -1).sum(1),
+                                        (0, -n % tile)).view(-1, tile).sum(1)
+                for t in (diff, ref))
+    tiles = torch.where(wsq > 0, (dsq / wsq.clamp_min(1e-300)).sqrt(),
+                        torch.where(dsq > 0, float("inf"), 0.0))
+    whole = float((dsq.sum() / wsq.sum()).sqrt()) if float(wsq.sum()) > 0 \
+        else (0.0 if float(dsq.sum()) == 0 else float("inf"))
+    return whole, float(tiles.max()) if tiles.numel() else 0.0
+
+
+def _flash_bwd_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window,
+                    softcap, dtype, library: bool = False,
+                    device: bool = False) -> dict:
+    """The backward kernel on the forward kernel's own output and
+    log-sum-exp, against ``flash_attention_backward_ref`` on the same."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_ref)
+    from repro_torch.kernels.flash_attention.ops import (
+        allowed_pairs, flash_attention_backward_cuda, flash_attention_cuda)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+    q, k, v = rand(B, Sq, Kh, G, hd), rand(B, Skv, Kh, hd), rand(B, Skv, Kh,
+                                                                 hd)
+    dout = rand(B, Sq, Kh, G, hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    bwd = lambda: flash_attention_backward_cuda(q, k, v, out, lse, dout,
+                                                **kw)
+    a, b = bwd(), bwd()
+    r = flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    if not all(same(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"flash_attention_backward[{label}]: two "
+                             f"launches differ")
+    bf16 = dtype == torch.bfloat16
+    tol = FLASH_TOL_BF16 if bf16 else FLASH_BWD_TOL_F32
+    err, rel = 0.0, {}
+    for n, x, y in zip("qkv", a, r):
+        err = max(err, _check_close(f"flash_attention_backward[{label}] "
+                                    f"d{n}", x, y, tol))
+        rel[n] = rel_gaps(x, y)
+        if bf16 and rel[n][1] > FLASH_BWD_REL_BF16:
+            raise AssertionError(
+                f"flash_attention_backward[{label}] d{n}: relative norm "
+                f"{rel[n][0]:.3g} (worst 64-row tile {rel[n][1]:.3g}) beyond "
+                f"{FLASH_BWD_REL_BF16} of the plain version")
+    del a, b, r
+    ms = time_ms(bwd)
+    device_ms = back_to_back_ms(bwd) if device else None
+    plain_ms = time_ms(lambda: flash_attention_backward_ref(
+        q, k, v, out, lse, dout, **kw), iters=5)
+    library_ms = library_device_ms = fwd_bwd_ms = library_fwd_bwd_ms = None
+    if library:
+        import torch.nn.functional as F
+        qt = q.reshape(B, Sq, Kh * G, hd).transpose(1, 2).contiguous()
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        go = dout.reshape(B, Sq, Kh * G, hd).transpose(1, 2).contiguous()
+        leaves = [t.requires_grad_(True) for t in (qt, kt, vt)]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=G > 1)
+        # its backward alone, on a graph built outside the timed call, as
+        # the kernel's ms is its backward alone
+        graph = sdpa()
+        sdpa_bwd = lambda: torch.autograd.grad(graph, leaves, go,
+                                               retain_graph=True)
+        library_ms = time_ms(sdpa_bwd)
+        library_device_ms = back_to_back_ms(sdpa_bwd) if device else None
+        del graph, sdpa_bwd
+        library_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa(), leaves, go))
+        fwd_bwd_ms = time_ms(lambda: flash_attention_backward_cuda(
+            q, k, v, *flash_attention_cuda(q, k, v, return_lse=True, **kw),
+            dout, **kw))
+    pairs = allowed_pairs(Sq, Skv, causal, window)
+    rows = B * Kh * G
+    # the gradient's products: S, dP, dV, dK, dQ (10·hd a pair) and D
+    # (2·hd a row); the kernels rebuild S and dP in both the dK/dV and the
+    # dQ kernel (14·hd a pair), which kernel_ops_ms prices
+    flops = rows * hd * (10 * pairs + 2 * Sq)
+    kernel_flops = rows * hd * (14 * pairs + 2 * Sq)
+    nbytes = (3 * q.numel() + 2 * k.numel() + 2 * v.numel() + out.numel()
+              ) * q.element_size() + 4 * lse.numel()
+    peak = PEAK_BF16_S if bf16 else PEAK_OPS_S
+    bnd, by = bound_ms(nbytes, flops, peak)
+    kernel_ops_ms = kernel_flops / peak * 1e3
+    lib = f"{library_ms:.4f}" if library_ms is not None else "none"
+    both = ""
+    if library_device_ms is not None:
+        both += f" library_device_ms={library_device_ms:.4f}"
+    if library:
+        both += (f" fwd_bwd_ms={fwd_bwd_ms:.4f} library_fwd_bwd_ms="
+                 f"{library_fwd_bwd_ms:.4f}")
+    log(f"  flash_attention_backward[{label}]: B={B} Sq={Sq} Skv={Skv} "
+        f"Kh={Kh} G={G} hd={hd} causal={causal} window={window} "
+        f"softcap={softcap} {str(dtype).split('.')[-1]} pairs={pairs} "
+        f"max_abs_err={err:.3g} tol={tol} rel_norm="
+        + ",".join(f"d{n}:{w:.3g}/{t:.3g}" for n, (w, t) in rel.items())
+        + f" (whole/worst 64-row tile; limit "
+        f"{FLASH_BWD_REL_BF16 if bf16 else 'none'}) ms={ms:.4f}"
+        f"{f' device_ms={device_ms:.4f}' if device else ''} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib} (sdpa backward)"
+        f"{both} bound_ms={bnd:.4f} ({by}; 10·hd a pair) "
+        f"kernel_ops_ms={kernel_ops_ms:.4f} (14·hd a pair) "
+        f"tflops={flops / ms / 1e9:.2f} share_of_bound={bnd / ms:.4f} "
+        f"bit_stable=True")
+    res = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bnd, bound_by=by, max_abs_err=err,
+               kernel_ops_ms=kernel_ops_ms,
+               rel_norm={f"d{n}": list(v) for n, v in rel.items()})
+    if device:
+        res["device_ms"] = device_ms
+    if library:
+        res.update(fwd_bwd_ms=fwd_bwd_ms,
+                   library_fwd_bwd_ms=library_fwd_bwd_ms)
+        if device:
+            res["library_device_ms"] = library_device_ms
+    return res
+
+
+def phase_flash_backward(gen) -> dict:
+    """The flash backward kernel at stablelm-3b's training microbatch
+    (2 sequences of 2048, 32 heads of 80, causal) in bf16, as the model
+    trains (the kernels line's row), and in fp32 (fields of their own);
+    then the card tests' options: GQA, window, softcap, Sq != Skv, rows
+    with no allowed key, hd 8 through 256."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    shape = (2, 2048, 2048, 32, 1, 80, True, 0, 0.0)
+    main = _flash_bwd_case("stablelm-3b train microbatch, bf16 tensor cores",
+                           gen, *shape, bf16, library=True, device=True)
+    fp32 = _flash_bwd_case("stablelm-3b train microbatch, fp32 FMA", gen,
+                           *shape, f32)
+    main.update({f"fp32_{k}": fp32[k] for k in ("ms", "plain_ms",
+                                                "bound_ms", "kernel_ops_ms",
+                                                "max_abs_err", "rel_norm")})
+    for args in (("gqa+window+softcap hd128", 2, 257, 257, 2, 2, 128, True,
+                  100, 30.0, bf16),
+                 ("causal Sq<Skv G4 hd128", 1, 130, 190, 2, 4, 128, True, 0,
+                  0.0, bf16),
+                 ("causal Sq>Skv window softcap hd80", 1, 190, 70, 1, 4, 80,
+                  True, 48, 10.0, bf16),
+                 ("masked rows hd80", 1, 100, 20, 1, 2, 80, False, 10, 0.0,
+                  bf16),
+                 ("cross ragged hd256", 1, 77, 213, 1, 4, 256, False, 0, 0.0,
+                  bf16),
+                 ("non-causal hd8", 1, 70, 65, 2, 4, 8, False, 0, 0.0, bf16),
+                 ("gqa+window+softcap fp32 hd128", 2, 257, 257, 2, 2, 128,
+                  True, 100, 30.0, f32),
+                 ("masked rows fp32 hd80", 1, 100, 20, 1, 2, 80, False, 10,
+                  0.0, f32),
+                 ("causal Sq>Skv fp32 hd256", 1, 130, 97, 1, 2, 256, True, 0,
+                  0.0, f32)):
+        _flash_bwd_case(*args[:1], gen, *args[1:])
+    return main
+
+
+def _scan_bwd_case(label, gen, Bt, T, d, N, dtype, lanes=None,
+                   device: bool = False) -> dict:
+    """The backward kernel on the forward kernel's own carries, against
+    ``mamba_scan_backward_ref`` on the same (delta and x widened to fp32:
+    with bf16 ones the kernel's gradients of them must be exactly its fp32
+    gradients of the widened values, rounded)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_backward_ref
+    from repro_torch.kernels.mamba_scan.ops import (mamba_scan_backward_cuda,
+                                                    mamba_scan_cuda)
+    args = _scan_inputs(gen, Bt, T, d, N, False, dtype)
+    dev = gen.device
+    dy = torch.randn((Bt, T, d), generator=gen, device=dev)
+    dhT = torch.randn((Bt, d, N), generator=gen, device=dev)
+    _, _, carries = mamba_scan_cuda(*args, lanes=lanes, carries=True)
+    bwd = lambda: mamba_scan_backward_cuda(*args, carries, dy, dhT,
+                                           lanes=lanes)
+    a, b = bwd(), bwd()
+    wide = [t.float() for t in args[:2]] + list(args[2:])
+    f = mamba_scan_backward_cuda(*wide, carries, dy, dhT, lanes=lanes)
+    r = mamba_scan_backward_ref(*wide, carries, dy, dhT)
+    torch.cuda.synchronize()
+    err, long_sum_rel = 0.0, {}
+    for name, x, y, w, plain, arg in zip(("delta", "x", "B", "C", "A", "h0"),
+                                         a, b, f, r, args):
+        if not same(x, y):
+            raise AssertionError(f"mamba_scan_backward[{label}] d{name}: "
+                                 f"two launches differ")
+        if not same(x, w.to(arg.dtype)):
+            raise AssertionError(f"mamba_scan_backward[{label}] d{name}: "
+                                 f"not the widened inputs' gradient")
+        rtol, atol = SCAN_TOL
+        if name in SCAN_LONG_SUMS:
+            atol *= float(plain.abs().max())
+            # how much of the limit's atol the kernel uses
+            long_sum_rel[f"d{name}"] = float(
+                (w - plain).abs().max() / plain.abs().max())
+        err = max(err, _check_close(f"mamba_scan_backward[{label}] d{name}",
+                                    w, plain, (rtol, atol)))
+    del a, b, f, r
+    ms = time_ms(bwd)
+    device_ms = back_to_back_ms(bwd) if device else None
+    plain_ms = time_ms(lambda: mamba_scan_backward_ref(
+        *args, carries, dy, dhT), iters=3, warmup=1)
+    # one exp2 a (b, t, c, n) against the bytes read once (delta, x, B,
+    # C, A, the carries, dy, dhT) and written once (the six gradients,
+    # each the size of its input)
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    nbytes = size(args[:5]) + size((carries, dy, dhT)) + size(args)
+    bnd, by = bound_ms(nbytes, Bt * T * d * N, PEAK_EX2_S)
+    log(f"  mamba_scan_backward[{label}]: Bt={Bt} T={T} d={d} N={N} "
+        f"{str(dtype).split('.')[-1]} lanes={lanes or 'default'} "
+        f"carries={tuple(carries.shape)} max_abs_err={err:.3g} "
+        f"tol={SCAN_TOL} (dB, dC, dA: atol x their largest value; "
+        f"their max gap / max value: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in long_sum_rel.items())
+        + ") "
+        f"ms={ms:.4f}{f' device_ms={device_ms:.4f}' if device else ''} "
+        f"plain_ms={plain_ms:.4f} library_ms=none bound_ms={bnd:.4f} "
+        f"({by}) share_of_bound={bnd / ms:.4f} bit_stable=True "
+        f"same_as_widened=True")
+    res = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
+               bound_by=by, max_abs_err=err, long_sum_rel=long_sum_rel)
+    if device:
+        res["device_ms"] = device_ms
+    return res
+
+
+def phase_scan_backward(gen) -> dict:
+    """The scan's backward kernel at falcon-mamba-7b's training microbatch
+    (1 sequence of 2048, d_inner 8192, N 16) with bf16 delta/x, as the
+    model passes them (the kernels line's row), each lane split timed
+    there; then the card tests' options: N 4, 8, 32, a ragged last chunk,
+    d not a multiple of the 64-channel block, fp32 delta/x."""
+    from repro_torch.kernels.mamba_scan.ops import (default_lanes,
+                                                    mamba_scan_backward_cuda,
+                                                    mamba_scan_cuda)
+    bf16, f32 = torch.bfloat16, torch.float32
+    shape = (1, 2048, 8192, 16)
+    main = _scan_bwd_case("falcon-mamba-7b train microbatch, bf16 delta/x",
+                          gen, *shape, bf16, device=True)
+    args = _scan_inputs(gen, *shape, False, bf16)
+    dy = torch.randn(shape[:3], generator=gen, device=gen.device)
+    dhT = torch.zeros((1, shape[2], shape[3]), device=gen.device)
+    _, _, carries = mamba_scan_cuda(*args, carries=True)
+    lanes_ms = {lanes: time_ms(lambda: mamba_scan_backward_cuda(
+        *args, carries, dy, dhT, lanes=lanes)) for lanes in (1, 2, 4)}
+    log(f"  mamba_scan_backward lanes a channel (bf16, Bt=1 T=2048 d=8192 "
+        f"N=16): " + ", ".join(f"{k}: {v:.4f} ms" for k, v in
+                               lanes_ms.items())
+        + f"; the wrapper takes {default_lanes(1, shape[2])}")
+    main["lanes_ms"] = lanes_ms
+    del args, dy, dhT, carries
+    for args in (("ragged T/d N=16 fp32", 3, 333, 1000, 16, f32),
+                 ("N=4 lanes 1 bf16", 2, 45, 64, 4, bf16, 1),
+                 ("N=8 lanes 4 fp32", 1, 100, 130, 8, f32, 4),
+                 ("N=32 lanes 1 fp32", 2, 33, 40, 32, f32, 1),
+                 ("N=32 lanes 2 bf16", 1, 61, 64, 32, bf16, 2),
+                 ("odd d N=5 lanes 4 bf16", 2, 70, 131, 5, bf16, 4)):
+        _scan_bwd_case(*args[:1], gen, *args[1:])
     return main
 
 
@@ -2095,7 +2429,8 @@ RESUME_ATOL = 1e-6
 
 
 def _grad_norms(cfg, params, batch):
-    """(loss, per-leaf gradient norms, flash and scan launches) of one
+    """(loss, per-leaf gradient norms, launches of the flash and scan
+    forward kernels, launches of their backward kernels) of one
     ``forward_train`` + backward."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import transformer as tf
@@ -2107,15 +2442,17 @@ def _grad_norms(cfg, params, batch):
     torch.cuda.synchronize()
     counts = launch_counts()
     norms = torch.stack([g.float().norm() for g in grads]).cpu()
-    return loss.item(), norms, counts["flash_attention"], counts["mamba_scan"]
+    return (loss.item(), norms, counts["flash_attention"],
+            counts["mamba_scan"], counts["flash_attention_backward"]
+            + counts["mamba_scan_backward"])
 
 
 def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
     """One microbatch of the trained shape (seed 0's first block) through
     ``forward_train`` and its backward at ``arch``'s full width and
-    ``depth`` layers: the kernel route (the kernels' forwards, the plain
-    versions' gradients) against the plain route, both in the compute
-    dtype, with the fp32 plain route as the yardstick.  Loss, global
+    ``depth`` layers: the kernel route (the forward and backward kernels)
+    against the plain route, both in the compute dtype, with the fp32
+    plain route as the yardstick.  Loss, global
     gradient norm and every leaf's gradient norm: the kernel route's
     relative gap to the yardstick must be no larger than twice the plain
     route's plus BF16_MARGIN (phase 4's rule)."""
@@ -2137,11 +2474,13 @@ def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
                         params, batch)
     kernel = _grad_norms(cfg, params, batch)
     ref = _grad_norms(cfg.replace(**plain), params, batch)
-    launched = kernel[2] + kernel[3]
-    if launched != 2 * depth or ref[2] + ref[3] + truth[2] + truth[3]:
+    launched, backward = kernel[2] + kernel[3], kernel[4]
+    if launched != 2 * depth or backward != depth or sum(
+            ref[2:] + truth[2:]):
         raise AssertionError(f"{arch}: the kernel route launched {launched} "
-                             f"kernels, expected {2 * depth} (a layer, "
-                             f"forward and remat recompute); the plain "
+                             f"forward and {backward} backward kernels, "
+                             f"expected {2 * depth} (a layer, forward and "
+                             f"remat recompute) and {depth}; the plain "
                              f"routes must launch none")
 
     def gaps(run):
@@ -2159,8 +2498,8 @@ def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
         f"rel gaps loss {k_loss:.3g} global {k_glob:.3g} worst leaf "
         f"{float(k_leaf.max()):.3g}; {cfg.compute_dtype} plain route "
         f"{p_loss:.3g} / {p_glob:.3g} / {float(p_leaf.max()):.3g}; "
-        f"{len(k_leaf)} leaves; kernel launches {launched} "
-        f"(rule: kernel <= 2 x plain + {BF16_MARGIN})")
+        f"{len(k_leaf)} leaves; kernel launches {launched} forward, "
+        f"{backward} backward (rule: kernel <= 2 x plain + {BF16_MARGIN})")
     bad = [(name, k, p) for name, k, p in (
         ("loss", k_loss, p_loss), ("global grad norm", k_glob, p_glob),
         (f"leaf {worst} grad norm", float(k_leaf[worst]),
@@ -2173,11 +2512,13 @@ def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
 
 
 def _function_times(arch: str, cfg, dev: torch.device) -> dict:
-    """The kernel's forward and the Function's plain backward, each alone,
-    at one layer's microbatch shape of the trained model (CUDA events, the
-    median of 5): what a backward kernel would replace."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.mamba_scan import mamba_scan
+    """At one layer's microbatch shape of the trained model (CUDA events,
+    the median of 5): the forward kernel, the Function's backward (the
+    backward kernel) and the plain backward on the same saved values."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward_ref)
+    from repro_torch.kernels.mamba_scan import (mamba_scan,
+                                                mamba_scan_backward_ref)
     spec = TRAIN[arch]
     rows, S = spec["batch"] // spec["grad_accum"], TRAIN_SEQ
     gen = torch.Generator(device=dev)
@@ -2189,12 +2530,16 @@ def _function_times(arch: str, cfg, dev: torch.device) -> dict:
         ins = [torch.randn(s, generator=gen, device=dev).to(bf16)
                for s in ((rows, S, kh, G, hd), (rows, S, kh, hd),
                          (rows, S, kh, hd))]
-        fwd = lambda *a: flash_attention(*a, causal=True)
+        fwd = lambda *a: flash_attention(*a, causal=True, impl="cuda")
+        plain = lambda saved, g: flash_attention_backward_ref(
+            *saved, g, causal=True)
         shape = f"[{rows}, {S}, {kh}, {G}, {hd}] bf16"
     else:
         d, N = cfg.d_inner, cfg.ssm_state
         ins = list(_scan_inputs(gen, rows, S, d, N, True, bf16))
-        fwd = lambda *a: mamba_scan(*a, chunk=cfg.ssm_chunk)[0]
+        fwd = lambda *a: mamba_scan(*a, impl="cuda")[0]
+        plain = lambda saved, g: mamba_scan_backward_ref(
+            *saved, g, torch.zeros_like(ins[5]))
         shape = f"Bt {rows}, T {S}, d {d}, N {N}, bf16 delta/x"
     leaves = [t.requires_grad_(True) for t in ins]
     with torch.no_grad():
@@ -2205,10 +2550,14 @@ def _function_times(arch: str, cfg, dev: torch.device) -> dict:
     def backward():
         torch.autograd.grad(out, leaves, g, retain_graph=True)
     bwd_ms = time_ms(backward, iters=5, warmup=1)
+    saved = [t.detach() for t in out.grad_fn.saved_tensors]
+    plain_ms = time_ms(lambda: plain(saved, g), iters=3, warmup=1)
     log(f"  {arch}: {'flash' if arch == 'stablelm-3b' else 'scan'} at one "
-        f"layer's microbatch ({shape}): kernel forward {fwd_ms:.4f} ms, "
-        f"the Function's plain backward {bwd_ms:.4f} ms")
-    return {"forward_ms": fwd_ms, "backward_ms": bwd_ms}
+        f"layer's microbatch ({shape}): forward kernel {fwd_ms:.4f} ms, "
+        f"the Function's backward (the backward kernel) {bwd_ms:.4f} ms, "
+        f"the plain backward {plain_ms:.4f} ms")
+    return {"forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "plain_backward_ms": plain_ms}
 
 
 def _step_breakdown(cfg, params, batch) -> dict:
@@ -2240,14 +2589,15 @@ def _step_breakdown(cfg, params, batch) -> dict:
 
 def train_model(arch: str, dev: torch.device, profile: bool = False):
     """``arch`` (TRAIN) through ``launch.train.train_loop`` twice from seed
-    0: finite losses, step 0 near ln(vocab), the kernel launched once a
-    layer a microbatch in the forward and once more in the remat
-    recompute, the second run's losses within RERUN_RTOL (and whether they
-    are bit-identical).  Prints step ms, tokens/s, 6·N·tokens / step time
-    against the bf16 peak and the peak memory; then the forward/backward
-    split of a microbatch and the Functions' backward at one layer's
-    shape.  Returns (the kernel's launches in the two runs, the Function
-    times)."""
+    0: finite losses, step 0 near ln(vocab), the forward kernel launched
+    once a layer a microbatch in the forward and once more in the remat
+    recompute, the backward kernel once a layer a microbatch, the second
+    run's losses within RERUN_RTOL (and whether they are bit-identical).
+    Prints step ms, tokens/s, 6·N·tokens / step time against the bf16
+    peak and the peak memory; then the forward/backward split of a
+    microbatch and the Function's kernels and the plain backward at one
+    layer's shape.  Returns (the forward kernel's launches in the two
+    runs, the backward kernel's, the Function times)."""
     from repro_torch.configs import get_config
     from repro_torch.data import (InputPipeline, PipelineConfig,
                                   make_lm_batch_fn)
@@ -2259,6 +2609,7 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
     cfg = full.replace(n_layers=spec["depth"] or full.n_layers,
                        grad_accum=spec["grad_accum"])
     kernel = "flash_attention" if cfg.family == "dense" else "mamba_scan"
+    backward = f"{kernel}_backward"
     n = tf.param_count(cfg)
     tokens = spec["batch"] * TRAIN_SEQ
     per_step = cfg.n_layers * cfg.grad_accum * 2
@@ -2270,20 +2621,22 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
         f"{cfg.remat_policy}, global batch {spec['batch']} x {TRAIN_SEQ} in "
         f"{cfg.grad_accum} microbatches, {spec['steps']} steps; card: "
         f"{card_line()}")
-    runs, launches, res = [], 0, None
+    runs, launches, bwd_launches, res = [], 0, 0, None
     torch.cuda.synchronize()
     reset_launches()
     for attempt in (1, 2):
         res = None
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        before = launch_counts()[kernel]
+        before = launch_counts()
         t = time.perf_counter()
         res = train_loop(cfg, steps=spec["steps"], batch=spec["batch"],
                          seq_len=TRAIN_SEQ, log_every=1, seed=0, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launched = launch_counts()[kernel] - before
+        after = launch_counts()
+        launched = after[kernel] - before[kernel]
+        launched_bwd = after[backward] - before[backward]
         losses, step_s = res["losses"], res["step_seconds"]
         if launched != per_step * spec["steps"]:
             raise AssertionError(f"{arch}#{attempt}: {kernel} launched "
@@ -2292,6 +2645,12 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
                                  f"{cfg.grad_accum} microbatches x 2: the "
                                  f"forward and the remat recompute) x "
                                  f"{spec['steps']}")
+        if launched_bwd != per_step // 2 * spec["steps"]:
+            raise AssertionError(f"{arch}#{attempt}: {backward} launched "
+                                 f"{launched_bwd} times, expected "
+                                 f"{per_step // 2} a step ({cfg.n_layers} "
+                                 f"layers x {cfg.grad_accum} microbatches) "
+                                 f"x {spec['steps']}")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{arch}#{attempt}: losses {losses}")
         ln_v = float(np.log(cfg.vocab_size))
@@ -2309,11 +2668,14 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
             f"tok/s, 6*N*tokens/step = {6 * n * tokens / steady / 1e12:.1f} "
             f"TFLOP/s = {6 * n * tokens / steady / PEAK_BF16_S:.4f} of the "
             f"989 TFLOP/s bf16 peak; {kernel} launches={launched} "
-            f"({per_step} a step); peak device memory "
+            f"({per_step} a step), {backward} launches={launched_bwd} "
+            f"({per_step // 2} a step); peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; card: "
             f"{card_line()}")
         runs.append(losses)
         launches += launched
+        bwd_launches += launched_bwd
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
     same_losses = runs[0] == runs[1]
     gap = max(abs(a - b) / abs(b) for a, b in zip(*runs))
     log(f"  {arch}: second run's losses "
@@ -2351,16 +2713,18 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
     torch.cuda.empty_cache()
     fn = _function_times(arch, cfg, dev)
     calls = cfg.n_layers * cfg.grad_accum
-    log(f"  {arch}: the Function's plain backward, {calls} calls a step: "
+    log(f"  {arch}: the backward kernel, {calls} calls a step: "
         f"{calls * fn['backward_ms']:.1f} ms = "
         f"{calls * fn['backward_ms'] / (steady * 1e3):.4f} of the step "
-        f"(the kernel's forward {2 * calls * fn['forward_ms']:.1f} ms over "
-        f"{2 * calls} launches)")
+        f"(the forward kernel {2 * calls * fn['forward_ms']:.1f} ms over "
+        f"{2 * calls} launches; the plain backward would take "
+        f"{calls * fn['plain_backward_ms']:.1f} ms)")
     fn.update(step_ms=steady * 1e3, backward_share=bwd / (fwd + bwd),
               function_backward_share=calls * fn["backward_ms"]
-              / (steady * 1e3))
+              / (steady * 1e3),
+              peak_gib=peak_gib)
     torch.cuda.empty_cache()
-    return launches, fn
+    return launches, bwd_launches, fn
 
 
 def train_resume(dev: torch.device) -> None:
@@ -2400,16 +2764,19 @@ def train_resume(dev: torch.device) -> None:
 def phase_train(dev: torch.device, profile: bool) -> dict:
     """Phase 5: the gradient route checks, stablelm-3b whole and
     falcon-mamba-7b at 8 layers through ``train_loop``, the resume check.
-    Returns each kernel's launches in the training runs and the Function
-    times for the kernels line."""
+    Returns each kernel's launches in the training runs (forward and
+    backward kernels) and the Function times for the kernels line."""
     t0 = time.perf_counter()
     train_route_check("stablelm-3b", dev)
     train_route_check("falcon-mamba-7b", dev)
-    flash, flash_fn = train_model("stablelm-3b", dev, profile)
-    scan, scan_fn = train_model("falcon-mamba-7b", dev)
+    flash, flash_bwd, flash_fn = train_model("stablelm-3b", dev, profile)
+    scan, scan_bwd, scan_fn = train_model("falcon-mamba-7b", dev)
     train_resume(dev)
     log(f"training phase wall: {time.perf_counter() - t0:.1f}s")
-    return {"flash_attention": (flash, flash_fn), "mamba_scan": (scan, scan_fn)}
+    return {"flash_attention": (flash, flash_fn),
+            "flash_attention_backward": (flash_bwd, {}),
+            "mamba_scan": (scan, scan_fn),
+            "mamba_scan_backward": (scan_bwd, {})}
 
 
 # ---------------------------------------------------------------------------
@@ -2467,8 +2834,9 @@ def phase_sharded_lm(dev: torch.device, backend: str = "nccl") -> int:
     batch against the unsharded ``make_train_step`` from the same seed
     (loss and global grad norm within SHARD_RTOL, bit-identity reported,
     step ms of both), then a 4 x 2048 prefill and decode steps against the
-    unsharded serve steps on the same weights.  Returns the flash launches
-    of the sharded runs, counted from 0 just before them."""
+    unsharded serve steps on the same weights.  Returns the flash
+    launches of the sharded runs, counted from 0 just before them, by
+    kernel (forward, backward)."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.data import (InputPipeline, PipelineConfig,
@@ -2515,6 +2883,7 @@ def phase_sharded_lm(dev: torch.device, backend: str = "nccl") -> int:
                              params, opt, batches)
         torch.cuda.synchronize()
         launches = launch_counts()["flash_attention"]
+        bwd_launches = launch_counts()["flash_attention_backward"]
         peak = torch.cuda.max_memory_allocated() / 2**30
         del opt
         torch.cuda.empty_cache()
@@ -2530,14 +2899,18 @@ def phase_sharded_lm(dev: torch.device, backend: str = "nccl") -> int:
             f" ms, not attributed); max rel gap {max(gaps):.3g} (tolerance "
             f"{SHARD_RTOL}); "
             f"{'bit-identical' if same else 'not bit-identical'}; flash "
-            f"launches {launches} ({per_step} a step); peak "
+            f"launches {launches} ({per_step} a step), backward "
+            f"{bwd_launches} ({per_step // 2} a step); peak "
             f"{peak:.1f} GiB; rules {rules.mapping}")
         if max(gaps) > SHARD_RTOL:
             raise AssertionError(f"sharded train step: gap {max(gaps):.3g} "
                                  f"to the unsharded step")
-        if launches != per_step * spec["steps"]:
-            raise AssertionError(f"sharded train step: {launches} flash "
-                                 f"launches, expected {per_step} a step")
+        if launches != per_step * spec["steps"] or \
+                bwd_launches != per_step // 2 * spec["steps"]:
+            raise AssertionError(f"sharded train step: {launches} flash and "
+                                 f"{bwd_launches} backward launches, "
+                                 f"expected {per_step} and "
+                                 f"{per_step // 2} a step")
 
         sv = SHARD_SERVE
         toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -2578,7 +2951,8 @@ def phase_sharded_lm(dev: torch.device, backend: str = "nccl") -> int:
         del params, whole
         torch.cuda.empty_cache()
         log(f"sharded phase wall: {time.perf_counter() - t0:.1f}s")
-        return launches + served
+        return {"flash_attention": launches + served,
+                "flash_attention_backward": bwd_launches}
     finally:
         dist.destroy_process_group()
 
@@ -2633,7 +3007,8 @@ def phase_dryrun(dev: torch.device, procs: list) -> int:
     FLOPs within DRYRUN_FLOPS_RTOL of the counted ones.  (b) the
     DRYRUN_CELLS, traced on the fake process group at 256 or 512 ranks in
     ``procs`` (``start_dryrun_cells``), one line a cell.  Returns the
-    flash launches of the real step, counted from 0 just before it."""
+    flash launches of the real step, counted from 0 just before it, by
+    kernel (forward, backward)."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -2673,6 +3048,7 @@ def phase_dryrun(dev: torch.device, procs: list) -> int:
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t
     launches = launch_counts()["flash_attention"]
+    bwd_launches = launch_counts()["flash_attention_backward"]
     card_peak = torch.cuda.max_memory_allocated()
     del params, opt, batch
     torch.cuda.empty_cache()
@@ -2695,8 +3071,8 @@ def phase_dryrun(dev: torch.device, procs: list) -> int:
         f"{counted:.6e}, rel gap {gap:.3g} (tolerance {DRYRUN_FLOPS_RTOL});"
         f" HBM bytes traced {roof['bytes_per_device']:.4e}; "
         f"{_dryrun_terms(roof)}; the card's step under FlopCounterMode "
-        f"{step_s:.2f}s, loss {loss:.6f}, flash launches {launches}; card: "
-        f"{card_line()}")
+        f"{step_s:.2f}s, loss {loss:.6f}, flash launches {launches}, "
+        f"backward {bwd_launches}; card: {card_line()}")
     if traced_state != state:
         raise AssertionError(f"dry run: traced params + opt state "
                              f"{traced_state} B, the card's {state} B")
@@ -2707,9 +3083,11 @@ def phase_dryrun(dev: torch.device, procs: list) -> int:
         raise AssertionError(f"dry run: traced FLOPs {flops:.6e} against "
                              f"{counted:.6e} counted on the card")
     per_step = cfg.n_layers * cfg.grad_accum * 2
-    if launches != per_step:
+    if launches != per_step or bwd_launches != per_step // 2:
         raise AssertionError(f"dry run: the real step launched flash "
-                             f"{launches} times, expected {per_step}")
+                             f"{launches} times and its backward "
+                             f"{bwd_launches}, expected {per_step} and "
+                             f"{per_step // 2}")
 
     failed = []
     for (arch, shp, multi), proc in procs:
@@ -2737,7 +3115,8 @@ def phase_dryrun(dev: torch.device, procs: list) -> int:
     if failed:
         raise AssertionError(f"dry run: cells failed: {failed}")
     log(f"dry-run phase wall: {time.perf_counter() - t0:.1f}s")
-    return launches
+    return {"flash_attention": launches,
+            "flash_attention_backward": bwd_launches}
 
 
 def main() -> int:
@@ -2775,6 +3154,7 @@ def main() -> int:
     flash_ptxas(_cuda.build_log)
     scan_ptxas(_cuda.build_log)
     probe_ptxas(_cuda.build_log)
+    backward_ptxas(_cuda.build_log)
     bk = resolve_backend("torch")
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda")
@@ -2796,6 +3176,9 @@ def main() -> int:
     probe_device_pass()
     measured["flash_attention"] = phase_flash_attention(gen)
     measured["mamba_scan"] = phase_mamba_scan(gen)
+    torch.cuda.empty_cache()
+    measured["flash_attention_backward"] = phase_flash_backward(gen)
+    measured["mamba_scan_backward"] = phase_scan_backward(gen)
     torch.cuda.empty_cache()
 
     # ---- phase 3: the ETL main path
@@ -2846,6 +3229,7 @@ def main() -> int:
 
     # ---- phase 5: the LM training path
     log(f"LM training path (train_loop, sequences of {TRAIN_SEQ}):")
+    launches.update(flash_attention_backward=0, mamba_scan_backward=0)
     trained = phase_train(gen.device, args.profile)
     for name, (n, fn) in trained.items():
         launches[name] += n
@@ -2855,13 +3239,15 @@ def main() -> int:
     log(f"LM sharded path (DTensor over a DeviceMesh, sequences of "
         f"{TRAIN_SEQ}):")
     sharded_lm = phase_sharded_lm(gen.device)
-    launches["flash_attention"] += sharded_lm
+    for name, n in sharded_lm.items():
+        launches[name] += n
 
     # ---- phase 7: the dry run: a traced step against the card's, then
     # production cells on the fake process group in their own processes
     log("LM dry run (meta tensors, H100 data-sheet roofline):")
     dry_procs = start_dryrun_cells()
-    launches["flash_attention"] += phase_dryrun(gen.device, dry_procs)
+    for name, n in phase_dryrun(gen.device, dry_procs).items():
+        launches[name] += n
 
     # ---- result lines
     sources = {"hash_probe": ("src/repro_torch/csrc/hash_probe.cu",
@@ -2874,7 +3260,14 @@ def main() -> int:
                    "src/repro_torch/csrc/flash_attention_mma.cu",
                    "src/repro/kernels/flash_attention/kernel.py:111"),
                "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
-                              "src/repro/kernels/mamba_scan/kernel.py:79")}
+                              "src/repro/kernels/mamba_scan/kernel.py:79"),
+               # no Pallas kernel: jax.grad of the plain functions
+               "flash_attention_backward": (
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention/ref.py:11"),
+               "mamba_scan_backward": (
+                   "src/repro_torch/csrc/mamba_scan_bwd.cu",
+                   "src/repro/models/mamba.py:25")}
     kernels = []
     for name, (src, replaces) in sources.items():
         m = measured[name]
@@ -2889,24 +3282,41 @@ def main() -> int:
                                  "from torch.profiler; other_tables: "
                                  "customer, supplier and date")
         row.update({k: v for k, v in m.items() if k.startswith("train_")})
-        if name == "flash_attention":
-            row["sharded_launches"] = sharded_lm
+        if name in sharded_lm:
+            row["sharded_launches"] = sharded_lm[name]
             row["sharded_note"] = (
                 "launches include the sharded phase's: stablelm-3b on a 1x1 "
-                "nccl mesh, 2 train steps (a launch a layer a microbatch, "
-                "forward and remat recompute) and one 4 x 2048 prefill; and "
-                "the dry-run phase's real stablelm-3b step (256)")
+                "nccl mesh, 2 train steps (a forward launch a layer a "
+                "microbatch and one in the remat recompute, a backward "
+                "launch a layer a microbatch) and, forward only, one "
+                "4 x 2048 prefill; and the dry-run phase's real stablelm-3b "
+                "step (256 forward, 128 backward)")
         if name in trained:
             row["train_note"] = (
                 f"launches include {trained[name][0]} from training (two "
-                f"train_loop runs: a launch a layer a microbatch in the "
-                f"forward and one in the remat recompute); train_forward_ms "
-                f"/ train_backward_ms: the kernel's forward and the "
-                f"Function's plain-recompute backward at one layer's "
-                f"microbatch shape; train_backward_share: a microbatch's "
-                f"backward over its forward + backward; "
-                f"train_function_backward_share: the plain backward's calls "
-                f"over the step")
+                f"train_loop runs: a forward launch a layer a microbatch "
+                f"and one in the remat recompute, a backward launch a "
+                f"layer a microbatch)")
+        if trained.get(name, (0, {}))[1]:
+            row["train_times_note"] = (
+                "at one layer's microbatch shape: train_forward_ms the "
+                "forward kernel, train_backward_ms the Function's backward "
+                "(the backward kernel), train_plain_backward_ms the plain "
+                "backward on the same saved values; train_step_ms the "
+                "steady step; train_backward_share a microbatch's "
+                "backward over its forward + backward; "
+                "train_function_backward_share the backward kernel's calls "
+                "over the step; train_peak_gib the training run's peak "
+                "device memory")
+        if name in ("flash_attention_backward", "mamba_scan_backward"):
+            row["replaces_note"] = (
+                "no TPU kernel: the reference trains by jax.grad of its "
+                "plain function at this line, which XLA compiles")
+            row.update({k: v for k, v in m.items() if k.startswith("fp32_")
+                        or k in ("device_ms", "lanes_ms", "kernel_ops_ms",
+                                 "fwd_bwd_ms", "library_fwd_bwd_ms",
+                                 "library_device_ms",
+                                 "rel_norm", "long_sum_rel")})
         if name == "flash_attention":
             row.update({k: v for k, v in m.items() if k.startswith("fp32_")
                         or k.endswith("_prefill")})
@@ -2926,12 +3336,37 @@ def main() -> int:
                                 "at 67 TFLOP/s")
         if name == "mamba_scan":
             row.update({k: v for k, v in m.items()
-                        if k.startswith("fp32_") or k.endswith("lanes_ms")})
+                        if k.startswith("fp32_") or k.endswith("lanes_ms")
+                        or k == "device_ms"})
             row["fp32_note"] = ("the same kernel on fp32 delta/x at the same "
                                 "shape; the row's own numbers are for bf16 "
                                 "delta/x, as the model passes them")
             row["library_note"] = ("none: no single PyTorch call computes "
                                    "the selective scan")
+        if name == "flash_attention_backward":
+            row["library_note"] = ("scaled_dot_product_attention's backward "
+                                   "alone, on a graph built outside the "
+                                   "timed call, at the same shape (B 2, S "
+                                   "2048, 32 heads of 80, causal, bf16); "
+                                   "library_device_ms: the same from CUDA "
+                                   "events around 20 calls back to back, "
+                                   "beside device_ms; "
+                                   "fwd_bwd_ms: the forward kernel with its "
+                                   "log-sum-exp then this kernel; "
+                                   "library_fwd_bwd_ms: sdpa forward + "
+                                   "backward")
+            row["bound_note"] = ("the gradient's products, 10·hd an allowed "
+                                 "pair a query head (S, dP, dV, dK, dQ) plus "
+                                 "2·hd a row (D), at 989 TFLOP/s; "
+                                 "kernel_ops_ms: the kernels' own 14·hd a "
+                                 "pair (S and dP rebuilt in the dQ kernel); "
+                                 "rel_norm: each gradient's ||got - want|| / "
+                                 "||want||, whole and worst 64-row tile")
+        if name == "mamba_scan_backward":
+            row["library_note"] = ("none: no single PyTorch call computes "
+                                   "the selective scan's gradient")
+            row["shape_note"] = ("Bt 1, T 2048, d 8192, N 16, bf16 delta/x "
+                                 "(falcon-mamba-7b's training microbatch)")
         kernels.append(row)
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

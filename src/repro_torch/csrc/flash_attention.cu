@@ -54,6 +54,9 @@
 //     blocks take the q tiles with the most kv tiles first.
 //   - The NEG_INF = -1e30 guards of the TPU kernel are kept as they are,
 //     and l == 0 flushes to 0.  No atomics: two launches are bit-identical.
+//   - For training, each row's base-2 log-sum-exp m + log2(l) goes to lse
+//     [B, Kh, G, Sq] when the caller asks for it (+inf for a row with no
+//     allowed key), for the backward kernel (flash_attention_bwd.cu).
 // The tile shape is chosen from hd alone at compile time (Cfg below): hd 8
 // has 8 lanes a row group (one head dim a lane in P.V), hd >= 128 takes
 // 32-key tiles and hd 256 4-row micro-tiles, to stay within the 227 KB of
@@ -130,9 +133,9 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int Sq,
-             int Skv, int Kh, int G, int causal, int window, float softcap,
-             float scale) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Skv, int Kh, int G,
+             int causal, int window, float softcap, float scale) {
   using C = Cfg<HD>;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                          // [kBQ][kLd]
@@ -364,6 +367,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < C::kRM; ++i) {
     const int qp = q0 + wr0 + C::kRG * i;
     if (qp >= Sq) continue;
+    if (lse != nullptr && cg == 0)
+      lse[(int64_t)row * Sq + qp] =
+          l[i] > 0.f ? m[i] + log2f(l[i]) : __int_as_float(0x7f800000);
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
     float* orow = o + q_off + (int64_t)qp * q_tok;
 #pragma unroll
@@ -383,6 +389,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;
   int B, Sq, Skv, Kh, G, causal, window;
   float softcap, scale;
   cudaStream_t stream;
@@ -401,22 +408,24 @@ cudaError_t launch(const Args& a) {
   const dim3 grid((unsigned)rows, (unsigned)q_tiles);
   flash_kernel<HD><<<grid, kThreads, C::kSmemBytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.Sq, a.Skv,
-      a.Kh, a.G, a.causal, a.window, a.softcap, a.scale);
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Sq,
+      a.Skv, a.Kh, a.G, a.causal, a.window, a.softcap, a.scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// fp32 q, k, v and output; every pointer 16-byte aligned.
+// fp32 q, k, v and output; every pointer 16-byte aligned.  lse: null, or
+// [B, Kh, G, Sq] fp32 for the rows' base-2 log-sum-exp.
 extern "C" int repro_flash_attention_fp32(const void* q, const void* k,
-                                          const void* v, void* o, int B,
-                                          int Sq, int Skv, int Kh, int G,
-                                          int hd, int causal, int window,
-                                          float softcap, float scale,
-                                          void* stream) {
+                                          const void* v, void* o, void* lse,
+                                          int B, int Sq, int Skv, int Kh,
+                                          int G, int hd, int causal,
+                                          int window, float softcap,
+                                          float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Kh <= 0 || G <= 0) return (int)cudaSuccess;
-  const Args a{q, k, v, o, B, Sq, Skv, Kh, G, causal, window, softcap, scale,
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, Kh, G,
+               causal, window, softcap, scale,
                static_cast<cudaStream_t>(stream)};
   switch (hd) {
     case 8: return (int)launch<8>(a);

@@ -49,6 +49,11 @@
 //   - The NEG_INF = -1e30 guards of the TPU kernel are kept, and l == 0
 //     flushes to 0.  No atomics and no split over kv: two launches are
 //     bit-identical.
+//   - For training, each row's log-sum-exp in base 2, m + log2(l) of the
+//     scaled (capped) scores times log2(e), is written to lse
+//     [B, Kh, G, Sq] when the caller asks for it (+inf for a row with no
+//     allowed key); the backward kernel (flash_attention_bwd.cu) rebuilds
+//     P from it.  The output's bits do not depend on it.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -274,9 +279,9 @@ __device__ __forceinline__ void pv_products(float (&acc)[NT][4],
 template <int HD>
 __global__ void __launch_bounds__(kThreads, HD <= 96 ? 2 : 1)
 flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-                   int Skv, int Kh, int G, int causal, int window,
-                   float softcap, float scale) {
+                   const bf16* __restrict__ v, bf16* __restrict__ o,
+                   float* __restrict__ lse, int Sq, int Skv, int Kh, int G,
+                   int causal, int window, float softcap, float scale) {
   using T = Tile<HD>;
   constexpr int Bc = T::kBc;
   constexpr int Hdp = T::kHdp;
@@ -522,6 +527,10 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int qp = r0 + 8 * h;
+    if (lse != nullptr && tig == 0 && qp < Sq)
+      lse[(int64_t)row * Sq + qp] =
+          l[h] > 0.f ? m[h] + log2f(l[h]) : __int_as_float(0x7f800000);
     l[h] = l[h] == 0.f ? 1.f : l[h];
   }
   constexpr int P = T::kPitch;
@@ -551,6 +560,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;
   int B, Sq, Skv, Kh, G, causal, window;
   float softcap, scale;
   cudaStream_t stream;
@@ -569,22 +579,24 @@ cudaError_t launch(const Args& a) {
   const dim3 grid((unsigned)rows, (unsigned)q_tiles);
   flash_wgmma_kernel<HD><<<grid, kThreads, T::kSmemBytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.Sq, a.Skv,
-      a.Kh, a.G, a.causal, a.window, a.softcap, a.scale);
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.Sq,
+      a.Skv, a.Kh, a.G, a.causal, a.window, a.softcap, a.scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 q, k, v and output; every pointer 16-byte aligned.
+// bf16 q, k, v and output; every pointer 16-byte aligned.  lse: null, or
+// [B, Kh, G, Sq] fp32 for the rows' base-2 log-sum-exp.
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* o, int B,
-                                          int Sq, int Skv, int Kh, int G,
-                                          int hd, int causal, int window,
-                                          float softcap, float scale,
-                                          void* stream) {
+                                          const void* v, void* o, void* lse,
+                                          int B, int Sq, int Skv, int Kh,
+                                          int G, int hd, int causal,
+                                          int window, float softcap,
+                                          float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Kh <= 0 || G <= 0) return (int)cudaSuccess;
-  const Args a{q, k, v, o, B, Sq, Skv, Kh, G, causal, window, softcap, scale,
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, Kh, G,
+               causal, window, softcap, scale,
                static_cast<cudaStream_t>(stream)};
   switch (hd) {
     case 8: return (int)launch<8>(a);

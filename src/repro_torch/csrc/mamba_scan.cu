@@ -47,6 +47,14 @@
 //     the same bits as scanning [0, T).  The steps of a last, partial group
 //     leave the state untouched.  The arithmetic is spelled out in _rn
 //     intrinsics, so the fp32 and bf16 instances round alike.
+//   - For training, the state before every kCarry-th step (32 for N <= 8,
+//     16 for N <= 16, 8 above: a group start) goes to carries
+//     [Bt, ceil(T / kCarry), d, N] when the caller asks for it; the
+//     backward kernel (mamba_scan_bwd.cu) rebuilds each chunk's states
+//     from it with the same instructions, so bit for bit.  y and hT do not
+//     depend on it.  Those are instances of their own (kCarries), so the
+//     serving path's code is the same as without them (the stores in the
+//     scan loop slowed it).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -57,6 +65,10 @@ constexpr int kChunk = 32;     // time steps in one ring stage
 constexpr int kStages = 2;     // ring depth
 constexpr int kUnroll = 8;     // steps a loop trip scans (at least L)
 constexpr float kLog2e = 1.4426950408889634f;
+
+// steps between the saved carries for state bucket NS (ops.carry_steps)
+template <int NS>
+constexpr int kCarry = NS <= 8 ? 32 : 256 / NS;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(uint16_t bf16_bits) {
@@ -245,15 +257,24 @@ __device__ __forceinline__ void scan_group(const Stage<E, NS>& st, int g0,
   }
 }
 
-template <typename E, int NS, int L>
-__global__ void __launch_bounds__(kChannels * L, 4)
+// 4 blocks an SM; 3 for N <= 32 split over 2 or 4 lanes when they save
+// carries, which then need more than 128 or 64 registers a thread
+template <int NS, int L, bool kCarries>
+constexpr int kMinBlocks = kCarries && NS == 32 && L > 1 ? 3 : 4;
+
+template <typename E, int NS, int L, bool kCarries>
+__global__ void __launch_bounds__(kChannels * L,
+                                  (kMinBlocks<NS, L, kCarries>))
 mamba_scan_kernel(const E* __restrict__ delta, const E* __restrict__ x,
                   const float* __restrict__ Bm, const float* __restrict__ Cm,
                   const float* __restrict__ A, const float* __restrict__ h0,
-                  float* __restrict__ y, float* __restrict__ hT, int T, int d,
-                  int N, int vec_dx, int vec_bc) {
+                  float* __restrict__ y, float* __restrict__ hT,
+                  float* __restrict__ carries, int T, int d, int N,
+                  int vec_dx, int vec_bc) {
   constexpr int S = NS / L;  // states a lane holds
   constexpr int U = kUnroll > L ? kUnroll : L;
+  constexpr int CH = kCarry<NS>;
+  static_assert(CH % U == 0 && kChunk % CH == 0, "carries at group starts");
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int q = threadIdx.x % L;  // lane within the channel's group
@@ -274,6 +295,16 @@ mamba_scan_kernel(const E* __restrict__ delta, const E* __restrict__ x,
   }
 
   const int n_chunks = (T + kChunk - 1) / kChunk;
+  const int n_carries = (T + CH - 1) / CH;
+  // the state before step t, when t starts a carry interval
+  auto save = [&](int t) {
+    if (!kCarries || !c_ok || t % CH != 0) return;
+    float* dst =
+        carries + (((int64_t)blockIdx.y * n_carries + t / CH) * d + c) * N;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      if (q * S + s < N) dst[q * S + s] = h[s];
+  };
 #pragma unroll
   for (int k = 0; k < kStages - 1; ++k) {
     if (k < n_chunks)
@@ -296,9 +327,14 @@ mamba_scan_kernel(const E* __restrict__ delta, const E* __restrict__ x,
     const int len = min(kChunk, T - t0);
     float* y_c = c_ok ? y + (row0 + t0) * d + c : nullptr;
     int g = 0;
-    for (; g + U <= len; g += U)
+    for (; g + U <= len; g += U) {
+      save(t0 + g);
       scan_group<false, E, NS, L>(st, g, len, q, cl, a2, h, y_c, d);
-    if (g < len) scan_group<true, E, NS, L>(st, g, len, q, cl, a2, h, y_c, d);
+    }
+    if (g < len) {
+      save(t0 + g);
+      scan_group<true, E, NS, L>(st, g, len, q, cl, a2, h, y_c, d);
+    }
   }
 
   if (!c_ok) return;
@@ -309,51 +345,67 @@ mamba_scan_kernel(const E* __restrict__ delta, const E* __restrict__ x,
   }
 }
 
-template <typename E, int NS, int L>
-cudaError_t launch(const void* delta, const void* x, const float* Bm,
-                   const float* Cm, const float* A, const float* h0, float* y,
-                   float* hT, int Bt, int T, int d, int N, int vec_dx,
-                   int vec_bc, cudaStream_t stream) {
+template <typename E, int NS, int L, bool kCarries>
+cudaError_t launch_kernel(const void* delta, const void* x, const float* Bm,
+                          const float* Cm, const float* A, const float* h0,
+                          float* y, float* hT, float* cr, int Bt, int T,
+                          int d, int N, int vec_dx, int vec_bc,
+                          cudaStream_t stream) {
   constexpr int kSmem = kStages * Stage<E, NS>::kBytes;
   static_assert(kSmem <= 48 * 1024, "ring exceeds the default shared memory");
   const dim3 grid((unsigned)((d + kChannels - 1) / kChannels), (unsigned)Bt);
-  mamba_scan_kernel<E, NS, L><<<grid, kChannels * L, kSmem, stream>>>(
-      static_cast<const E*>(delta), static_cast<const E*>(x), Bm, Cm, A, h0,
-      y, hT, T, d, N, vec_dx, vec_bc);
+  mamba_scan_kernel<E, NS, L, kCarries>
+      <<<grid, kChannels * L, kSmem, stream>>>(
+          static_cast<const E*>(delta), static_cast<const E*>(x), Bm, Cm, A,
+          h0, y, hT, cr, T, d, N, vec_dx, vec_bc);
   return cudaGetLastError();
+}
+
+// the instance with carries when the caller asks for them
+template <typename E, int NS, int L>
+cudaError_t launch(const void* delta, const void* x, const float* Bm,
+                   const float* Cm, const float* A, const float* h0, float* y,
+                   float* hT, float* cr, int Bt, int T, int d, int N,
+                   int vec_dx, int vec_bc, cudaStream_t stream) {
+  if (cr != nullptr)
+    return launch_kernel<E, NS, L, true>(delta, x, Bm, Cm, A, h0, y, hT, cr,
+                                         Bt, T, d, N, vec_dx, vec_bc, stream);
+  return launch_kernel<E, NS, L, false>(delta, x, Bm, Cm, A, h0, y, hT, cr,
+                                        Bt, T, d, N, vec_dx, vec_bc, stream);
 }
 
 template <typename E, int L>
 cudaError_t launch_n(const void* delta, const void* x, const float* Bm,
                      const float* Cm, const float* A, const float* h0,
-                     float* y, float* hT, int Bt, int T, int d, int N,
-                     int vec_dx, int vec_bc, cudaStream_t st) {
+                     float* y, float* hT, float* cr, int Bt, int T, int d,
+                     int N, int vec_dx, int vec_bc, cudaStream_t st) {
   if (N <= 4)
-    return launch<E, 4, L>(delta, x, Bm, Cm, A, h0, y, hT, Bt, T, d, N,
+    return launch<E, 4, L>(delta, x, Bm, Cm, A, h0, y, hT, cr, Bt, T, d, N,
                            vec_dx, vec_bc, st);
   if (N <= 8)
-    return launch<E, 8, L>(delta, x, Bm, Cm, A, h0, y, hT, Bt, T, d, N,
+    return launch<E, 8, L>(delta, x, Bm, Cm, A, h0, y, hT, cr, Bt, T, d, N,
                            vec_dx, vec_bc, st);
   if (N <= 16)
-    return launch<E, 16, L>(delta, x, Bm, Cm, A, h0, y, hT, Bt, T, d, N,
+    return launch<E, 16, L>(delta, x, Bm, Cm, A, h0, y, hT, cr, Bt, T, d, N,
                             vec_dx, vec_bc, st);
-  return launch<E, 32, L>(delta, x, Bm, Cm, A, h0, y, hT, Bt, T, d, N, vec_dx,
-                          vec_bc, st);
+  return launch<E, 32, L>(delta, x, Bm, Cm, A, h0, y, hT, cr, Bt, T, d, N,
+                          vec_dx, vec_bc, st);
 }
 
 template <typename E>
 cudaError_t launch_e(int lanes, const void* delta, const void* x,
                      const float* Bm, const float* Cm, const float* A,
-                     const float* h0, float* y, float* hT, int Bt, int T,
-                     int d, int N, int vec_dx, int vec_bc, cudaStream_t st) {
+                     const float* h0, float* y, float* hT, float* cr, int Bt,
+                     int T, int d, int N, int vec_dx, int vec_bc,
+                     cudaStream_t st) {
   if (lanes == 1)
-    return launch_n<E, 1>(delta, x, Bm, Cm, A, h0, y, hT, Bt, T, d, N, vec_dx,
-                          vec_bc, st);
+    return launch_n<E, 1>(delta, x, Bm, Cm, A, h0, y, hT, cr, Bt, T, d, N,
+                          vec_dx, vec_bc, st);
   if (lanes == 2)
-    return launch_n<E, 2>(delta, x, Bm, Cm, A, h0, y, hT, Bt, T, d, N, vec_dx,
-                          vec_bc, st);
-  return launch_n<E, 4>(delta, x, Bm, Cm, A, h0, y, hT, Bt, T, d, N, vec_dx,
-                        vec_bc, st);
+    return launch_n<E, 2>(delta, x, Bm, Cm, A, h0, y, hT, cr, Bt, T, d, N,
+                          vec_dx, vec_bc, st);
+  return launch_n<E, 4>(delta, x, Bm, Cm, A, h0, y, hT, cr, Bt, T, d, N,
+                        vec_dx, vec_bc, st);
 }
 
 bool aligned(const void* p, int bytes) {
@@ -363,12 +415,13 @@ bool aligned(const void* p, int bytes) {
 }  // namespace
 
 // bf16: delta and x are bf16 (else fp32).  lanes: threads a channel's
-// states are split over (1, 2 or 4).
+// states are split over (1, 2 or 4).  carries: null, or
+// [Bt, ceil(T / kCarry), d, N] fp32 for the states the backward starts from.
 extern "C" int repro_mamba_scan(const void* delta, const void* x,
                                 const void* Bm, const void* Cm, const void* A,
-                                const void* h0, void* y, void* hT, int Bt,
-                                int T, int d, int N, int bf16, int lanes,
-                                void* stream) {
+                                const void* h0, void* y, void* hT,
+                                void* carries, int Bt, int T, int d, int N,
+                                int bf16, int lanes, void* stream) {
   if (Bt <= 0 || d <= 0) return (int)cudaSuccess;
   if (Bt > 65535 || N < 1 || N > 32 || T < 0 ||
       (lanes != 1 && lanes != 2 && lanes != 4))
@@ -386,10 +439,11 @@ extern "C" int repro_mamba_scan(const void* delta, const void* x,
   const auto* hh = static_cast<const float*>(h0);
   auto* yy = static_cast<float*>(y);
   auto* ht = static_cast<float*>(hT);
+  auto* cr = static_cast<float*>(carries);
   auto* st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return (int)launch_e<uint16_t>(lanes, delta, x, bb, cc, aa, hh, yy, ht, Bt,
-                                   T, d, N, vec_dx, vec_bc, st);
-  return (int)launch_e<float>(lanes, delta, x, bb, cc, aa, hh, yy, ht, Bt, T,
-                              d, N, vec_dx, vec_bc, st);
+    return (int)launch_e<uint16_t>(lanes, delta, x, bb, cc, aa, hh, yy, ht,
+                                   cr, Bt, T, d, N, vec_dx, vec_bc, st);
+  return (int)launch_e<float>(lanes, delta, x, bb, cc, aa, hh, yy, ht, cr, Bt,
+                              T, d, N, vec_dx, vec_bc, st);
 }

@@ -13,9 +13,11 @@
 #   flash_attention — GQA attention with an online softmax for the dense
 #                     models' prefill: bf16 on the tensor cores
 #                     (csrc/flash_attention_mma.cu), fp32 in FMAs
-#                     (csrc/flash_attention.cu).
+#                     (csrc/flash_attention.cu); its gradient for training
+#                     (csrc/flash_attention_bwd.cu).
 #   mamba_scan      — the Mamba-1 selective scan for the SSM models' prefill
-#                     (csrc/mamba_scan.cu).
+#                     (csrc/mamba_scan.cu) and its gradient for training
+#                     (csrc/mamba_scan_bwd.cu).
 #
 # Each package has ops.py (the wrapper: the kernel on a CUDA tensor, the
 # plain version on a CPU tensor, a launch counter) and ref.py (the plain

@@ -38,8 +38,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
-#: q, k, v, o, B, Sq, Skv, Kh, G, hd, causal, window, softcap, scale, stream
-_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)
+#: q, k, v, o, lse (null: not written), B, Sq, Skv, Kh, G, hd, causal,
+#: window, softcap, scale, stream
+_FLASH = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P)
+#: q, k, v, o, lse, do, D (scratch), dq, dk, dv, B, Sq, Skv, Kh, G, hd,
+#: causal, window, softcap, scale, stream
+_FLASH_BWD = (_P,) * 10 + (_I,) * 8 + (_F, _F, _P)
 #: C entry points and their argument types (every pointer and the stream as
 #: c_void_p; each returns a cudaError_t code).  They launch on the calling
 #: thread's current device, which the wrappers set with
@@ -57,8 +61,15 @@ _SIGNATURES = {
                           _I64, _P),
     "repro_flash_attention_fp32": _FLASH,
     "repro_flash_attention_bf16": _FLASH,
-    "repro_mamba_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _P),
+    "repro_flash_attention_backward_fp32": _FLASH_BWD,
+    "repro_flash_attention_backward_bf16": _FLASH_BWD,
+    #: delta, x, B, C, A, h0, y, hT, carries (null: not written), Bt, T, d,
+    #: N, bf16, lanes, stream
+    "repro_mamba_scan": (_P,) * 9 + (_I,) * 6 + (_P,),
+    #: delta, x, B, C, A, carries, dy, dhT, d delta, dx, dA (per batch row),
+    #: dh0, dB and dC partials (per channel block), dB, dC, dA, Bt, T, d,
+    #: N, bf16, lanes, stream
+    "repro_mamba_scan_backward": (_P,) * 17 + (_I,) * 6 + (_P,),
 }
 
 
@@ -82,7 +93,8 @@ build_seconds = 0.0
 
 LAUNCHES: Dict[str, int] = {"hash_probe": 0, "radix_groupby": 0,
                             "segment_sum": 0, "flash_attention": 0,
-                            "mamba_scan": 0}
+                            "flash_attention_backward": 0, "mamba_scan": 0,
+                            "mamba_scan_backward": 0}
 _count_lock = threading.Lock()
 
 

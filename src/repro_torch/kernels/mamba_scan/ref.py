@@ -1,13 +1,23 @@
 """Plain torch versions of the selective scan: ``mamba_scan_ref``, a loop
-over time steps (the oracle the kernel is held against), and
-``mamba_scan_chunked``, the reference model's two-level chunked scan, which
-the model's plain route and the scan's gradient run."""
+over time steps (the oracle the kernel is held against),
+``mamba_scan_backward_ref``, its gradient by the backward kernel's
+reverse-time walk, and ``mamba_scan_chunked``, the reference model's
+two-level chunked scan, which the model's plain route runs."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+
+def carry_steps(N: int) -> int:
+    """Steps between the chunk carries the forward saves for the backward
+    (``csrc/mamba_scan_bwd.cu`` keeps a chunk's states and exps for 64
+    channels in 128 KB of shared memory): 32 for N <= 8, 16 for N <= 16,
+    8 for N <= 32 (the kernel's state buckets 4, 8, 16, 32)."""
+    bucket = 4 if N <= 4 else 8 if N <= 8 else 16 if N <= 16 else 32
+    return min(32, 256 // bucket)
 
 
 def _steps(*seqs: torch.Tensor):
@@ -18,13 +28,23 @@ def _steps(*seqs: torch.Tensor):
 
 
 def mamba_scan_ref(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
-                   C: torch.Tensor, A: torch.Tensor, h0: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   C: torch.Tensor, A: torch.Tensor, h0: torch.Tensor,
+                   carries: bool = False, chunk: Optional[int] = None
+                   ) -> Union[Tuple[torch.Tensor, torch.Tensor],
+                              Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]]:
     """delta, x: [Bt, T, d]; B, C: [Bt, T, N]; A: [d, N]; h0: [Bt, d, N].
-    Returns (y [Bt, T, d], hT [Bt, d, N]), all fp32."""
+    Returns (y [Bt, T, d], hT [Bt, d, N]), all fp32.
+
+    ``carries``: also return the state before every ``chunk``-th step
+    (``carry_steps(N)`` by default, as the kernel saves them),
+    [Bt, ceil(T / chunk), d, N] fp32, its first entry h0."""
     delta, x, B, C, A, h = (t.float() for t in (delta, x, B, C, A, h0))
-    ys = []
-    for d_t, x_t, B_t, C_t in _steps(delta, x, B, C):
+    ch = chunk or carry_steps(B.shape[-1])
+    ys, saved = [], []
+    for t, (d_t, x_t, B_t, C_t) in enumerate(_steps(delta, x, B, C)):
+        if carries and t % ch == 0:
+            saved.append(h)
         d_t = d_t[:, :, None]                            # [Bt, d, 1]
         dA = torch.exp(d_t * A)                          # [Bt, d, N]
         dBx = d_t * B_t[:, None, :] * x_t[:, :, None]
@@ -32,7 +52,68 @@ def mamba_scan_ref(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
         ys.append(torch.einsum("bdn,bn->bd", h, C_t))
     y = (torch.stack(ys, dim=1) if ys
          else delta.new_zeros(delta.shape))
-    return y, h
+    if not carries:
+        return y, h
+    return y, h, (torch.stack(saved, dim=1) if saved
+                  else h.new_zeros((h.shape[0], 0) + h.shape[1:]))
+
+
+def mamba_scan_backward_ref(delta: torch.Tensor, x: torch.Tensor,
+                            B: torch.Tensor, C: torch.Tensor,
+                            A: torch.Tensor, h0: torch.Tensor,
+                            carries: torch.Tensor, dy: torch.Tensor,
+                            dhT: torch.Tensor, chunk: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Gradients (d delta, dx, dB, dC, dA, dh0) of ``mamba_scan_ref``'s
+    (y, hT) from their gradients ``dy`` [Bt, T, d] and ``dhT`` [Bt, d, N],
+    by the backward kernel's walk: chunks of ``chunk`` steps last to first
+    (``carry_steps(N)`` by default: the interval of ``carries``, the
+    forward's states before each chunk), each one's states recomputed from
+    its carry with a_t = exp(delta_t A), then back in time with g the
+    gradient of the state after step t:
+
+        g += C_t dy_t;  dC_t = sum_c h_t dy_t;  dB_t = sum_c g delta_t x_t
+        dx_t = delta_t sum_n g B_t
+        d delta_t = sum_n g (A a_t h_{t-1} + B_t x_t)
+        dA += g delta_t a_t h_{t-1};  g = a_t g
+
+    and dh0 = g at the end; dA, summed over time per batch row, is summed
+    over the rows last.  The four contractions are einsums, so
+    ``FlopCounterMode`` counts what the kernel contracts: 2 Bt d N each a
+    step (the rest is elementwise, which it does not count).  fp32; each
+    gradient comes back in its input's dtype (bf16 delta and x: their fp32
+    gradients rounded)."""
+    dts = [t.dtype for t in (delta, x, B, C, A, h0)]
+    delta, x, B, C, A, dy, g = (t.float() for t in (delta, x, B, C, A, dy,
+                                                    dhT))
+    Bt, T, d = delta.shape
+    ch = chunk or carry_steps(B.shape[-1])
+    ddelta, dx = torch.empty_like(delta), torch.empty_like(x)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA = torch.zeros_like(g)
+    for k in reversed(range(carries.shape[1])):
+        t0, t1 = k * ch, min(T, (k + 1) * ch)
+        h = carries[:, k].float()
+        states = []
+        for t in range(t0, t1):
+            a = torch.exp(delta[:, t, :, None] * A)          # [Bt, d, N]
+            states.append((h, a))
+            h = a * h + (delta[:, t, :, None] * B[:, t, None, :]
+                         * x[:, t, :, None])
+        for t in reversed(range(t0, t1)):
+            h_prev, a = states[t - t0]
+            d_t, x_t, B_t, dy_t = delta[:, t], x[:, t], B[:, t], dy[:, t]
+            g = g + C[:, t, None, :] * dy_t[:, :, None]
+            dC[:, t] = torch.einsum("bdn,bd->bn", h, dy_t)
+            g_b = torch.einsum("bdn,bn->bd", g, B_t)
+            dx[:, t] = g_b * d_t
+            ah = a * h_prev
+            ddelta[:, t] = torch.einsum("bdn,bdn->bd", g, A * ah) + g_b * x_t
+            dB[:, t] = torch.einsum("bdn,bd->bn", g, d_t * x_t)
+            dA = dA + g * ah * d_t[:, :, None]
+            h, g = h_prev, a * g
+    return tuple(t.to(dt) for t, dt in zip(
+        (ddelta, dx, dB, dC, dA.sum(0), g), dts))
 
 
 def ssm_chunk_scan(h0: torch.Tensor, dA: torch.Tensor, dBx: torch.Tensor,

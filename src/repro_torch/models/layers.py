@@ -3,8 +3,8 @@
 Plain functions over nested dicts of tensors, named as in the reference's
 parameter tree.  Prefill and training attention go through the
 flash-attention kernel (``kernels/flash_attention``; with gradients its
-``FlashAttentionFunction``, the kernel's forward and the plain version's
-backward) unless ``attn_impl == "reference"``, which takes the reference's
+``FlashAttentionFunction``, the forward kernel and the backward kernel)
+unless ``attn_impl == "reference"``, which takes the reference's
 plain sdpa (``chunked_sdpa`` past ``attn_q_chunk``); the decode step is
 plain einsum attention over the cache, as in the reference.
 

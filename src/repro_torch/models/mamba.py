@@ -10,9 +10,10 @@ Prefill and training (T > 1) run the selective-scan kernel
 the reference's chunked two-level scan in plain torch
 (``mamba_scan_chunked``, each chunk rematerialised under autograd, as the
 reference's ``jax.checkpoint`` of its chunk body).  With gradients the
-kernel route goes through ``MambaScanFunction``: the kernel's forward, the
-plain chunked scan's backward.  Decode is a single recurrence step on the
-carried (conv_state, h).
+kernel route goes through ``MambaScanFunction``: the kernel's forward,
+which also saves the state every few steps, and the backward kernel, which
+rebuilds the states from those carries.  Decode is a single recurrence
+step on the carried (conv_state, h).
 """
 from __future__ import annotations
 
@@ -153,5 +154,4 @@ def _scan_local(delta, x, B, C, A, h0, *, cfg):
         return mamba_scan_chunked(delta, x, B, C, A, h0, chunk=cfg.ssm_chunk,
                                   fused=cfg.ssm_fused_ref)
     return mamba_scan(delta.contiguous(), x.contiguous(), B.contiguous(),
-                      C.contiguous(), A.contiguous(), h0, impl=cfg.ssm_impl,
-                      chunk=cfg.ssm_chunk)
+                      C.contiguous(), A.contiguous(), h0, impl=cfg.ssm_impl)

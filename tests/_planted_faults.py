@@ -1,0 +1,136 @@
+"""Planted faults against the backward kernels' checks, on a machine with
+an H100 and ``nvcc``:
+
+    python3 tests/_planted_faults.py
+
+Copies ``src/`` and ``chip_smoke.py`` into a temporary directory, plants
+three faults in the copy's CUDA sources, builds the copy and holds its
+gradients against the plain versions with ``chip_smoke.py``'s checks:
+
+- ``flash_attention_bwd.cu``: the bf16 dK/dV kernel skips the last query
+  tile it would visit for every key tile in the second half of the
+  sequence (at the training shape [2, 2048, 32, 80] and at a GQA case);
+  each of dK and dV must fail ``FLASH_BWD_REL_BF16`` (the relative norm
+  over 64-row tiles); whether ``FLASH_TOL_BF16`` alone catches it is
+  printed beside;
+- ``mamba_scan_bwd.cu``: the walk drops chunk 1's terms of dA, and the
+  reduction drops channel block 1's partials of dB and dC; at
+  falcon-mamba-7b's training shape (Bt 1, T 2048, d 8192, N 16), in bf16
+  and fp32 delta/x, each of dA, dB, dC must fail ``SCAN_TOL`` with its
+  atol times the gradient's largest value.
+
+Prints a line a gradient (its gap against the limit) and exits 1 if any
+planted fault passes the check meant to catch it.  The repo's own tree
+is not touched.
+"""
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FAULTS = {
+    "flash_attention_bwd.cu": [(
+        "const int n_it = G * n_qt;",
+        "const int n_it = G * n_qt - (n_qt > 1 && k0 >= Skv / 2 ? 1 : 0);")],
+    "mamba_scan_bwd.cu": [
+        ("dA[s] = __fmaf_rn(gs, __fmul_rn(dt, ah), dA[s]);",
+         "if (k != 1) dA[s] = __fmaf_rn(gs, __fmul_rn(dt, ah), dA[s]);"),
+        ("acc = __fadd_rn(acc, src[blk * tn]);",
+         "if (blk != 1) acc = __fadd_rn(acc, src[blk * tn]);")],
+}
+
+
+def plant(copy: Path) -> None:
+    for name, edits in FAULTS.items():
+        path = copy / "src" / "repro_torch" / "csrc" / name
+        text = path.read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"{name}: {old!r} is not in the source "
+                                 f"exactly once")
+            text = text.replace(old, new)
+        path.write_text(text)
+
+
+def check_copy() -> int:
+    """Run inside the planted copy (its ``src`` first on the path)."""
+    import torch
+
+    import chip_smoke as c
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_ref)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+    from repro_torch.kernels.mamba_scan import mamba_scan_backward_ref
+    from repro_torch.kernels.mamba_scan.ops import (mamba_scan_backward_cuda,
+                                                    mamba_scan_cuda)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    missed = []
+    bf16 = torch.bfloat16
+    for B, S, Kh, G, hd in ((2, 2048, 32, 1, 80), (2, 257, 2, 2, 128)):
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+        q, k, v = rand(B, S, Kh, G, hd), rand(B, S, Kh, hd), rand(B, S, Kh,
+                                                                  hd)
+        dout = rand(B, S, Kh, G, hd)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, causal=True)
+        got = flash_attention_backward_cuda(q, k, v, out, lse, dout,
+                                            causal=True)
+        want = flash_attention_backward_ref(q, k, v, out, lse, dout,
+                                            causal=True)
+        for n, a, w in zip("qkv", got, want):
+            whole, tile = c.rel_gaps(a, w)
+            rtol, atol = c.FLASH_TOL_BF16
+            elementwise = torch.allclose(a.float(), w.float(), rtol=rtol,
+                                         atol=atol)
+            print(f"flash S={S} G={G} hd={hd} d{n}: relative norm {whole:.4g},"
+                  f" worst 64-row tile {tile:.4g} (limit "
+                  f"{c.FLASH_BWD_REL_BF16}); elementwise "
+                  f"{'passes' if elementwise else 'fails'}")
+            if n in "kv" and tile <= c.FLASH_BWD_REL_BF16:
+                missed.append(f"flash S={S} d{n}")
+    for dtype in (bf16, torch.float32):
+        args = c._scan_inputs(gen, 1, 2048, 8192, 16, False, dtype)
+        dy = torch.randn((1, 2048, 8192), generator=gen, device="cuda")
+        dhT = torch.randn((1, 8192, 16), generator=gen, device="cuda")
+        _, _, carries = mamba_scan_cuda(*args, carries=True)
+        wide = [t.float() for t in args[:2]] + list(args[2:])
+        got = mamba_scan_backward_cuda(*wide, carries, dy, dhT)
+        want = mamba_scan_backward_ref(*wide, carries, dy, dhT)
+        for i, n in ((2, "B"), (3, "C"), (4, "A")):
+            a, w = got[i], want[i]
+            rtol, atol = c.SCAN_TOL
+            top = float(w.abs().max())
+            caught = not torch.allclose(a, w, rtol=rtol, atol=atol * top)
+            print(f"scan {str(dtype).split('.')[-1]} d{n}: max gap / max "
+                  f"value {float((a - w).abs().max()) / top:.4g} (atol "
+                  f"{atol} x max); {'fails' if caught else 'PASSES'}")
+            if not caught:
+                missed.append(f"scan {dtype} d{n}")
+    if missed:
+        print("planted faults the checks missed: " + ", ".join(missed))
+        return 1
+    print("every planted fault fails its check")
+    return 0
+
+
+def main() -> int:
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = Path(tmp)
+        shutil.copytree(ROOT / "src", copy / "src",
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        shutil.copy2(ROOT / "chip_smoke.py", copy)
+        shutil.copy2(__file__, copy / "planted_faults.py")
+        plant(copy)
+        env = dict(os.environ, PYTHONPATH=str(copy / "src"))
+        return subprocess.run(
+            [sys.executable, "planted_faults.py", "--in-copy"], cwd=copy,
+            env=env).returncode
+
+
+if __name__ == "__main__":
+    sys.exit(check_copy() if "--in-copy" in sys.argv else main())

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention import (flash_attention_backward_ref,
+                                                 flash_attention_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.launch.specs import cell_specs, limit_specs_tree
@@ -99,7 +100,8 @@ def to_np(tree):
 # ------------------------------------------------------------------ pieces
 def run_train(mesh, cfg, params_np, batches, counts=None):
     """Two sharded steps from ``params_np`` and a zero opt state ->
-    {metrics a step, params, m, step, flash launches a step}."""
+    {metrics a step, params, m, step, flash forward and backward launches
+    a step}."""
     shape = ShapeConfig("t", seq_len=S, global_batch=B, kind="train",
                         grad_accum=cfg.grad_accum)
     sp = cell_specs(cfg, shape, mesh)
@@ -111,7 +113,7 @@ def run_train(mesh, cfg, params_np, batches, counts=None):
     step = sharded_train_step(cfg, OptConfig(**OCFG), sp["rules"],
                               sp["param_specs"], sp["batch_specs"], mesh,
                               grad_transform=lambda g: keep(grads, g))
-    mets, launches = [], []
+    mets, launches, bwd_launches = [], [], []
     for toks in batches:
         before = dict(counts or {})
         p2, opt2, m = step(p, opt, {"tokens": torch.from_numpy(toks)})
@@ -120,10 +122,12 @@ def run_train(mesh, cfg, params_np, batches, counts=None):
         mets.append({k: float(v) for k, v in m.items()})
         if counts is not None:
             launches.append(counts["flash"] - before["flash"])
+            bwd_launches.append(counts["flash_bwd"] - before["flash_bwd"])
     placed = all(type(t).__name__ == "DTensor" for t in tree_leaves(p))
     return {"metrics": mets, "params": to_np(p), "m": to_np(opt["m"]),
             "grads": grads, "step": int(full(opt["step"])),
-            "launches": launches, "all_dtensor": placed}
+            "launches": launches, "backward_launches": bwd_launches,
+            "all_dtensor": placed}
 
 
 def keep(store, grads):
@@ -204,15 +208,20 @@ def run_int8(grads_np):
 
 
 def counting_flash():
-    """The plain version in place of the flash kernel's launch (the card's
-    route through ``FlashAttentionFunction`` on the CPU), each call
-    counted."""
-    counts = {"flash": 0}
+    """The plain versions in place of the flash kernels' launches, forward
+    and backward (the card's route through ``FlashAttentionFunction`` on
+    the CPU), each call counted."""
+    counts = {"flash": 0, "flash_bwd": 0}
 
     def flash(*a, **kw):
         counts["flash"] += 1
         return flash_attention_ref(*a, **kw)
+
+    def flash_bwd(*a, **kw):
+        counts["flash_bwd"] += 1
+        return flash_attention_backward_ref(*a, **kw)
     flash_ops.flash_attention_cuda = flash
+    flash_ops.flash_attention_backward_cuda = flash_bwd
     return counts
 
 

@@ -35,9 +35,11 @@ from repro.models import transformer as ref_tf
 from repro.train.serve_step import generate as ref_generate
 from repro_torch import configs
 from repro_torch.kernels import launch_counts, reset_launches
-from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention import (flash_attention_backward_ref,
+                                                 flash_attention_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.mamba_scan import mamba_scan_ref
+from repro_torch.kernels.mamba_scan import (mamba_scan_backward_ref,
+                                            mamba_scan_ref)
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.launch.serve import BatchedServer, Request
 from repro_torch.models import transformer as tf
@@ -292,29 +294,33 @@ def reference_train(arch, **kw):
 
 
 def standin_kernels(monkeypatch):
-    """The plain versions in place of the CUDA launches (``attn_impl`` /
-    ``ssm_impl = "cuda"`` then runs the card's Functions on the CPU), each
-    call counted."""
-    counts = {"flash": 0, "scan": 0}
+    """The plain versions in place of the CUDA launches, forward and
+    backward (``attn_impl`` / ``ssm_impl = "cuda"`` then runs the card's
+    Functions on the CPU), each call counted."""
+    counts = {"flash": 0, "flash_bwd": 0, "scan": 0, "scan_bwd": 0}
 
-    def flash(*a, **kw):
-        counts["flash"] += 1
-        return flash_attention_ref(*a, **kw)
-
-    def scan(*a):
-        counts["scan"] += 1
-        return mamba_scan_ref(*a)
-    monkeypatch.setattr(flash_ops, "flash_attention_cuda", flash)
-    monkeypatch.setattr(scan_ops, "mamba_scan_cuda", scan)
+    def counted(name, fn):
+        def call(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return call
+    for mod, name, key, fn in (
+            (flash_ops, "flash_attention_cuda", "flash", flash_attention_ref),
+            (flash_ops, "flash_attention_backward_cuda", "flash_bwd",
+             flash_attention_backward_ref),
+            (scan_ops, "mamba_scan_cuda", "scan", mamba_scan_ref),
+            (scan_ops, "mamba_scan_backward_cuda", "scan_bwd",
+             mamba_scan_backward_ref)):
+        monkeypatch.setattr(mod, name, counted(key, fn))
     return counts
 
 
 def check_forward_train(arch, route, monkeypatch, **kw):
     """The port's ``forward_train`` loss and every gradient leaf against
     the reference's, on route ``route`` ('cuda': the kernels' Functions
-    over stand-in kernels, each launched once a layer forward and once in
-    the period's recompute; vision counts as a layer's second attention).
-    """
+    over stand-in kernels, each forward launched once a layer forward and
+    once in the period's recompute, each backward once a layer; vision
+    counts as a layer's second attention)."""
     counts = standin_kernels(monkeypatch)
     cfg, p_np, b, ref_loss, ref_m, ref_g = reference_train(arch, **kw)
     cfg = cfg.replace(attn_impl=route, ssm_impl=route)
@@ -335,4 +341,6 @@ def check_forward_train(arch, route, monkeypatch, **kw):
     on = route == "cuda"
     assert counts["flash"] == (2 * n_flash if on else 0)
     assert counts["scan"] == (2 * n_ssm if on else 0)
+    assert counts["flash_bwd"] == (n_flash if on else 0)
+    assert counts["scan_bwd"] == (n_ssm if on else 0)
     return mets

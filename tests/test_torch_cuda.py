@@ -890,11 +890,182 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
+# ---------------------------------------------------------------- backward
+# The backward kernels against their plain versions on the same inputs,
+# with the forward kernels' own output and log-sum-exp (flash) or carries
+# (the scan).  Flash: fp32 within rtol 1e-4 / atol 1e-5 (fp32 sums in
+# other orders); bf16 within 2e-2 (the kernel rounds P and dS to bf16 for
+# its tensor-core products and each gradient to bf16).  The scan: within
+# rtol 1e-4 / atol 1e-4 in fp32 (ex2.approx of a prescaled A, the state
+# sums in other orders), dA within rtol 1e-4 and 1e-4 of its largest
+# value (it sums Bt * T products larger than most of its elements, so
+# either side's fp32 rounding scales with them, as _torch_lm.close_grads
+# holds gradient leaves); bf16 delta / x get exactly the rounded
+# gradients of the same values widened to fp32.  A second launch is
+# bit-identical.  bf16 flash is also held by relative norm on every
+# 64-row tile of the sequence (keys for dK and dV, queries for dQ), within
+# 1e-2: most dK and dV elements of late keys are far below the 2e-2 atol,
+# and the kernel's tiles read at most 2.9e-3 (chip_smoke.py phase 2, whose
+# FLASH_BWD_REL_BF16 this is).
+FLASH_BWD_CASES = [
+    # dtype, B, Sq, Skv, Kh, G, hd, causal, window, softcap
+    ("bfloat16", 2, 200, 200, 2, 1, 80, True, 0, 0.0),
+    ("bfloat16", 1, 130, 190, 2, 2, 80, True, 0, 0.0),    # Sq < Skv
+    ("bfloat16", 1, 190, 70, 1, 4, 80, True, 48, 10.0),   # Sq > Skv
+    ("bfloat16", 2, 257, 257, 2, 2, 128, True, 100, 0.0),  # window cuts
+    ("bfloat16", 1, 77, 213, 1, 4, 128, False, 0, 30.0),
+    ("bfloat16", 2, 150, 150, 1, 1, 128, False, 40, 0.0),
+    ("bfloat16", 1, 100, 20, 1, 2, 80, False, 10, 0.0),   # rows masked
+    ("bfloat16", 1, 70, 65, 2, 4, 8, False, 0, 0.0),
+    ("bfloat16", 1, 96, 96, 1, 2, 16, True, 0, 0.0),
+    ("bfloat16", 1, 100, 120, 2, 1, 32, True, 0, 5.0),
+    ("bfloat16", 1, 129, 129, 1, 2, 64, True, 0, 0.0),
+    ("bfloat16", 1, 90, 90, 1, 1, 96, True, 30, 0.0),
+    ("bfloat16", 1, 130, 97, 1, 2, 256, True, 0, 0.0),
+    ("bfloat16", 1, 70, 90, 1, 1, 256, False, 20, 30.0),
+    ("float32", 2, 200, 200, 2, 1, 80, True, 0, 0.0),
+    ("float32", 1, 130, 190, 2, 2, 80, True, 0, 0.0),
+    ("float32", 1, 190, 70, 1, 4, 80, True, 48, 10.0),
+    ("float32", 2, 257, 257, 2, 2, 128, True, 100, 0.0),
+    ("float32", 1, 77, 213, 1, 4, 128, False, 0, 30.0),
+    ("float32", 1, 100, 20, 1, 2, 80, False, 10, 0.0),
+    ("float32", 1, 70, 65, 2, 4, 8, False, 0, 0.0),
+    ("float32", 1, 100, 120, 2, 1, 32, True, 0, 5.0),
+    ("float32", 1, 130, 97, 1, 2, 256, True, 0, 0.0),
+]
+
+
+def _worst_tile_rel_norm(got, want, tile=64):
+    """The largest ||got - want|| / ||want|| over tiles of ``tile`` rows
+    along dim 1 (a tile where want is zero: 0 if got is too, else inf)."""
+    def tiles(t):
+        t = t.double().square().transpose(0, 1).reshape(t.shape[1], -1)
+        return torch.nn.functional.pad(t.sum(1), (0, -t.shape[0] % tile)
+                                       ).view(-1, tile).sum(1)
+    dsq, wsq = tiles(got.double() - want.double()), tiles(want)
+    rel = torch.where(wsq > 0, (dsq / wsq.clamp_min(1e-300)).sqrt(),
+                      torch.where(dsq > 0, float("inf"), 0.0))
+    return float(rel.max())
+
+
+def _flash_bwd_inputs(dev, dt, B, Sq, Skv, Kh, G, hd):
+    return [torch.from_numpy(RNG.normal(size=s)).to(dev, dt) for s in (
+        (B, Sq, Kh, G, hd), (B, Skv, Kh, hd), (B, Skv, Kh, hd),
+        (B, Sq, Kh, G, hd))]
+
+
+@pytest.mark.parametrize(
+    "dtype,B,Sq,Skv,Kh,G,hd,causal,window,softcap", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain(dev, dtype, B, Sq, Skv, Kh, G,
+                                             hd, causal, window, softcap):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_ref, flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+    dt = getattr(torch, dtype)
+    q, k, v, dout = _flash_bwd_inputs(dev, dt, B, Sq, Skv, Kh, G, hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert _same(out, flash_attention_cuda(q, k, v, **kw))
+    _, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    reset_launches()
+    got = flash_attention_backward_cuda(q, k, v, out, lse, dout, **kw)
+    again = flash_attention_backward_cuda(q, k, v, out, lse, dout, **kw)
+    assert launch_counts()["flash_attention_backward"] == 2
+    want = flash_attention_backward_ref(q, k, v, out, lse, dout, **kw)
+    tol = (1e-4, 1e-5) if dtype == "float32" else (2e-2, 2e-2)
+    for name, a, b, w in zip("qkv", got, again, want):
+        assert a.dtype == dt and _same(a, b), name
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol[0],
+                                   atol=tol[1])
+        if dtype == "bfloat16":
+            assert _worst_tile_rel_norm(a, w) <= 1e-2, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bt,T,d,N,lanes", [
+    (2, 100, 48, 16, 1), (2, 100, 48, 16, 2), (1, 77, 130, 16, 4),
+    (2, 45, 64, 4, 1), (1, 70, 96, 4, 4), (2, 33, 40, 32, 1),
+    (1, 61, 64, 32, 2), (1, 29, 72, 32, 4), (2, 70, 131, 5, 2),
+    (1, 64, 64, 8, 4)])
+def test_scan_backward_kernel_matches_plain(dev, Bt, T, d, N, lanes, dtype):
+    from repro_torch.kernels.mamba_scan import (carry_steps,
+                                                mamba_scan_backward_ref,
+                                                mamba_scan_ref)
+    from repro_torch.kernels.mamba_scan.ops import (mamba_scan_backward_cuda,
+                                                    mamba_scan_cuda)
+    args = _scan_args(dev, Bt, T, d, N, dtype)
+    dy = torch.from_numpy(RNG.normal(size=(Bt, T, d))).to(dev, torch.float32)
+    dhT = torch.from_numpy(RNG.normal(size=(Bt, d, N))).to(dev,
+                                                           torch.float32)
+    y, hT, carries = mamba_scan_cuda(*args, lanes=lanes, carries=True)
+    y2, hT2 = mamba_scan_cuda(*args, lanes=lanes)
+    assert _same(y, y2) and _same(hT, hT2)
+    _, _, carries_ref = mamba_scan_ref(*args, carries=True)
+    assert carries.shape == (Bt, -(-T // carry_steps(N)), d, N)
+    torch.testing.assert_close(carries, carries_ref, rtol=1e-4, atol=1e-4)
+    reset_launches()
+    got = mamba_scan_backward_cuda(*args, carries, dy, dhT, lanes=lanes)
+    again = mamba_scan_backward_cuda(*args, carries, dy, dhT, lanes=lanes)
+    assert launch_counts()["mamba_scan_backward"] == 2
+    for name, a, b in zip(("delta", "x", "B", "C", "A", "h0"), got, again):
+        assert _same(a, b), name
+    wide = [t.float() for t in args[:2]] + args[2:]
+    fp32 = mamba_scan_backward_cuda(*wide, carries, dy, dhT, lanes=lanes)
+    want = mamba_scan_backward_ref(*wide, carries, dy, dhT)
+    for i, name in enumerate(("delta", "x", "B", "C", "A", "h0")):
+        assert got[i].dtype == args[i].dtype, name
+        assert _same(got[i], fp32[i].to(args[i].dtype)), name
+        atol = 1e-4 * (float(want[i].abs().max()) if name == "A" else 1.0)
+        torch.testing.assert_close(fp32[i], want[i], rtol=1e-4, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_functions_never_run_the_plain_versions(dev, dtype,
+                                                         monkeypatch):
+    """On a CUDA tensor that needs a gradient both Functions run the
+    forward and backward kernels once each and no plain version."""
+    import repro_torch.kernels.flash_attention.ops as fo
+    import repro_torch.kernels.flash_attention.ref as fr
+    import repro_torch.kernels.mamba_scan.ops as so
+    import repro_torch.kernels.mamba_scan.ref as sr
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
+
+    def boom(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+    for mod, names in ((fo, ("flash_attention_ref",)),
+                       (fr, ("flash_attention_ref",
+                             "flash_attention_backward_ref")),
+                       (so, ("mamba_scan_ref",)),
+                       (sr, ("mamba_scan_ref", "mamba_scan_backward_ref",
+                             "mamba_scan_chunked"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, boom)
+    dt = getattr(torch, dtype)
+    q, k, v, w = (t.requires_grad_(i < 3) for i, t in enumerate(
+        _flash_bwd_inputs(dev, dt, 1, 100, 100, 2, 2, 80)))
+    reset_launches()
+    (flash_attention(q, k, v) * w).float().sum().backward()
+    args = [t.requires_grad_(True) for t in _scan_args(dev, 1, 50, 64, 16,
+                                                       dtype)]
+    y, hT = mamba_scan(*args)
+    (y.sum() + hT.sum()).backward()
+    counts = launch_counts()
+    assert [counts[n] for n in ("flash_attention", "flash_attention_backward",
+                                "mamba_scan", "mamba_scan_backward")] == \
+        [1, 1, 1, 1]
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in [q, k, v] + args)
+
+
 # ---------------------------------------------------------------- training
-# The kernels' Functions on the card: the forward is the kernel (one launch
-# a call), the gradients are the plain version's on the same inputs, so
-# they equal the plain route's gradients up to the order of fp32 sums
-# (rtol 1e-4 / atol 1e-5 in fp32; bf16 inputs: 2e-2).
+# The kernels' Functions on the card: forward and backward are kernels (one
+# launch each a call); the gradients are held against the plain route's on
+# the same inputs, up to the order of fp32 sums (rtol 1e-4 / atol 1e-5 in
+# fp32; bf16 inputs: 2e-2).
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window,softcap", [(True, 0, 0.0),
                                                    (True, 48, 10.0),
@@ -916,7 +1087,9 @@ def test_train_flash_function_on_the_card(dev, dtype, causal, window,
         reset_launches()
         out = flash_attention(*qkv, impl=impl, **kw)
         (out.float() * w.float()).sum().backward()
-        assert launch_counts()["flash_attention"] == (impl == "auto")
+        counts = launch_counts()
+        assert counts["flash_attention"] == (impl == "auto")
+        assert counts["flash_attention_backward"] == (impl == "auto")
         grads.append([t.grad for t in qkv])
     tol = (1e-4, 1e-5) if dtype == "float32" else (2e-2, 2e-2)
     for got, want in zip(*grads):
@@ -928,24 +1101,34 @@ def test_train_flash_function_on_the_card(dev, dtype, causal, window,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_train_scan_function_on_the_card(dev, dtype):
     """Gradients of delta, x, B, C, A and h0 through the kernel's Function
-    against the plain chunked scan's on the card."""
+    against the plain chunked scan's on the card.  With bf16 delta and x
+    their gradients are bf16, rounded from fp32 once on each route, so
+    they are held exactly to the kernel route's fp32 gradients of the same
+    values widened (which are held to the plain route's within the
+    tolerance): the two routes' fp32 values may round to neighbouring bf16
+    numbers."""
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_chunked
     arrays = _scan_args(dev, 2, 100, 48, 16, dtype)
     wy = torch.from_numpy(RNG.normal(size=(2, 100, 48))).to(dev,
                                                             torch.float32)
     grads, launched = [], []
-    for fn in (lambda *a: mamba_scan(*a, chunk=32),
-               lambda *a: mamba_scan_chunked(*a, chunk=32)):
-        ts = [t.detach().clone().requires_grad_(True) for t in arrays]
+    wide = [t.float() for t in arrays[:2]] + arrays[2:]
+    for fn, ins in ((mamba_scan, arrays),
+                    (lambda *a: mamba_scan_chunked(*a, chunk=32), wide),
+                    (mamba_scan, wide)):
+        ts = [t.detach().clone().requires_grad_(True) for t in ins]
         reset_launches()
         y, hT = fn(*ts)
         ((y * wy).sum() + hT.sum()).backward()
         grads.append([t.grad for t in ts])
-        launched.append(launch_counts()["mamba_scan"])
-    assert launched == [1, 0]
-    for got, want in zip(*grads):
-        assert got.dtype == want.dtype
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        counts = launch_counts()
+        launched.append([counts["mamba_scan"],
+                         counts["mamba_scan_backward"]])
+    assert launched == [[1, 1], [0, 0], [1, 1]]
+    for arg, got, want, fp32 in zip(arrays, *grads):
+        torch.testing.assert_close(fp32, want, rtol=1e-4, atol=1e-4)
+        assert got.dtype == arg.dtype
+        assert _same(got, fp32.to(arg.dtype))
 
 
 @pytest.mark.parametrize("arch", ["stablelm-3b", "falcon-mamba-7b"])

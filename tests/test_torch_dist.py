@@ -140,12 +140,14 @@ def test_sharded_train_steps_equal_the_unsharded(runs, case):
 
 
 def test_flash_runs_on_each_ranks_shards(runs):
-    """attn_impl 'cuda' (the kernel's plain version standing in for the
-    launch): FlashAttentionFunction under local_map, on every rank twice a
-    layer a microbatch (the forward and the remat recompute)."""
+    """attn_impl 'cuda' (the kernels' plain versions standing in for the
+    launches): FlashAttentionFunction under local_map, on every rank the
+    forward twice a layer a microbatch (the forward and the remat
+    recompute) and the backward once."""
     got = J.ok(runs[0]["train"]["stablelm-cuda-route"])
     cfg = J.train_cfg("stablelm-3b", 2)
     assert got["launches"] == [2 * cfg.n_layers * cfg.grad_accum] * 2
+    assert got["backward_launches"] == [cfg.n_layers * cfg.grad_accum] * 2
 
 
 @pytest.mark.parametrize("case", list(J.SERVE))

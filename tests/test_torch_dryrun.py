@@ -21,8 +21,10 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_IDS, get_config, get_shapes
+from repro_torch.kernels.flash_attention import flash_attention_backward_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.mamba_scan import mamba_scan_chunked, mamba_scan_ref
+from repro_torch.kernels.mamba_scan import (mamba_scan_backward_ref,
+                                            mamba_scan_ref)
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.launch.op_cost import OpCounter, wire_bytes
 from repro_torch.launch.roofline import model_flops_for
@@ -154,29 +156,64 @@ def test_scan_fake_op_matches_the_plain_forward_count(monkeypatch):
     (True, True, True, True, True, False), (True,) * 6,
     (True, False, False, False, False, False)])
 @pytest.mark.parametrize("chunk", [16, 10])
-def test_scan_backward_closed_form_equals_the_plain_chunked_backward(
-        needs, chunk):
-    """The fake backward's FLOPs against ``FlopCounterMode`` over what
-    ``MambaScanFunction.backward`` runs off meta tensors, at T 32."""
+def test_scan_backward_closed_form_equals_the_plain_backward(needs, chunk):
+    """The backward op's FLOPs, as ``MambaScanFunction`` runs it on meta
+    tensors, against ``FlopCounterMode`` over the plain version of the
+    backward kernel (``mamba_scan_backward_ref``, carries every ``chunk``
+    steps) at T 32; the plain backward never runs on meta tensors."""
     Bt, T, d, N = 2, 32, 8, 4
     ins = [_f32(Bt, T, d).abs() * 0.1, _f32(Bt, T, d), _f32(Bt, T, N),
            _f32(Bt, T, N), -_f32(d, N).abs(), _f32(Bt, d, N)]
-    xs = [t.requires_grad_(n) for t, n in zip(ins, needs)]
+    _, _, carries = mamba_scan_ref(*ins, carries=True, chunk=chunk)
     with FlopCounterMode(display=False) as plain:
-        y, hT = mamba_scan_chunked(*xs, chunk=chunk)
-        torch.autograd.grad((y, hT), [t for t in xs if t.requires_grad],
-                            (torch.ones_like(y), torch.ones_like(hT)))
+        mamba_scan_backward_ref(*ins, carries, torch.ones(Bt, T, d),
+                                torch.ones(Bt, d, N), chunk=chunk)
     meta = [t.detach().to("meta").requires_grad_(n)
             for t, n in zip(ins, needs)]
-    y, hT = scan_ops.MambaScanFunction.apply(*meta, chunk,
-                                             scan_ops._mamba_scan_op)
+    y, hT = scan_ops.MambaScanFunction.apply(
+        *meta, scan_ops._mamba_scan_op, scan_ops._mamba_scan_backward_op)
     with FlopCounterMode(display=False) as fake:
         grads = torch.autograd.grad((y, hT), [t for t in meta
                                               if t.requires_grad],
                                     (torch.ones_like(y), torch.ones_like(hT)))
-    assert fake.get_total_flops() == plain.get_total_flops()
+    assert fake.get_total_flops() == plain.get_total_flops() == \
+        8 * Bt * T * d * N
     assert [g.shape for g in grads] == [t.shape for t in meta
                                         if t.requires_grad]
+
+
+@pytest.mark.parametrize("causal,window,Sq,Skv", [
+    (True, 0, 96, 96), (True, 24, 96, 96), (False, 0, 40, 72),
+    (False, 16, 64, 64)])
+def test_flash_backward_op_counts_the_kernels_products(causal, window, Sq,
+                                                       Skv, monkeypatch):
+    """The backward op's FLOPs, as ``FlashAttentionFunction`` runs it on
+    meta tensors: 14·hd on each pair the mask allows plus 2·hd a query
+    row, a query head; no plain version runs.  The plain backward
+    (``flash_attention_backward_ref``) counts its five products over the
+    full square, 10·hd a pair, plus D's 2·hd a row."""
+    B, Kh, G, hd = 2, 3, 2, 32
+    rows, pairs = B * Kh * G, _pairs_by_mask(Sq, Skv, causal, window)
+    kw = dict(causal=causal, window=window)
+    q, k, v, do = (_f32(B, S, Kh, G, hd) if i in (0, 3) else _f32(B, S, Kh,
+                                                                   hd)
+                   for i, S in enumerate((Sq, Skv, Skv, Sq)))
+    out, lse = flash_ops.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    with FlopCounterMode(display=False) as plain:
+        flash_attention_backward_ref(q, k, v, out, lse, do, **kw)
+    assert plain.get_total_flops() == rows * hd * (10 * Sq * Skv + 2 * Sq)
+    monkeypatch.setattr(flash_ops, "flash_attention_ref",
+                        lambda *a, **k: pytest.fail("plain version ran"))
+    meta = [t.to(torch.bfloat16).to("meta").requires_grad_(True)
+            for t in (q, k, v)]
+    out = flash_ops.flash_attention(*meta, **kw)
+    with FlopCounterMode(display=False) as fake, OpCounter() as c:
+        grads = torch.autograd.grad(out, meta, torch.ones_like(out))
+    assert fake.get_total_flops() == c.totals()["flops"] == \
+        rows * hd * (14 * pairs + 2 * Sq)
+    assert _row(c, "repro_torch.flash_attention_backward")["calls"] == 1
+    assert [(g.shape, g.dtype) for g in grads] == [(t.shape, t.dtype)
+                                                   for t in meta]
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,11 @@
 the kernels' autograd Functions) against the JAX reference on the same
 numpy inputs, weights and optimizer state.
 
-On the CPU the Functions run with the plain forward in place of the kernel
-(``FlashAttentionFunction.apply(..., flash_attention_ref)``), and the
-model's card route is rehearsed by standing the plain versions in for
-``flash_attention_cuda`` / ``mamba_scan_cuda`` (``attn_impl`` /
+On the CPU the Functions run with the plain forward and backward in place
+of the kernels (``FlashAttentionFunction.apply(..., flash_attention_ref,
+flash_attention_backward_ref)``), and the model's card route is rehearsed
+by standing the plain versions in for ``flash_attention_cuda`` /
+``mamba_scan_cuda`` and their backward launches (``attn_impl`` /
 ``ssm_impl = "cuda"``): the same Functions, remat and launch counts as on
 the card.  The reference differentiates its plain versions
 (``attn_impl="reference"``; it cannot differentiate its Pallas kernels).
@@ -22,6 +23,8 @@ near eps = 1e-8, whose fp32 rounding differs by a few percent between the
 frameworks, moves its weight by a visible share of lr: one wv element of
 the smoke model, 0.5% of lr; every other agrees to rtol 1e-4).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -40,9 +43,11 @@ from repro.train.optimizer import init_opt_state as ref_init_opt
 from repro.train.optimizer import lr_at as ref_lr_at
 from repro.train.train_step import make_train_step as ref_make_step
 from repro_torch.kernels.flash_attention import (FlashAttentionFunction,
+                                                 flash_attention_backward_ref,
                                                  flash_attention_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.mamba_scan import (MambaScanFunction,
+                                            mamba_scan_backward_ref,
                                             mamba_scan_chunked,
                                             mamba_scan_ref)
 from repro_torch.models import transformer as tf
@@ -169,12 +174,16 @@ def test_flash_function_gradients_match_reference(B, Sq, Skv, Kh, G, hd,
     def forward(*args, **kw):
         calls.append(kw)
         return flash_attention_ref(*args, **kw)
+
+    def backward(*args, **kw):
+        calls.append(kw)
+        return flash_attention_backward_ref(*args, **kw)
     qt, kt, vt = (torch.from_numpy(a).requires_grad_(True)
                   for a in (q, k, v))
     out = FlashAttentionFunction.apply(qt, kt, vt, causal, window, softcap,
-                                       forward)
+                                       forward, backward)
     (out * torch.from_numpy(w)).sum().backward()
-    assert calls == [opts]
+    assert calls == [dict(opts, return_lse=True), opts]
     for got, ref in zip((qt.grad, kt.grad, vt.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
                                    atol=1e-5)
@@ -194,8 +203,8 @@ def _scan_inputs(Bt, T, d, N):
     (2, 32, 6, 4, 8), (1, 21, 5, 3, 8), (2, 16, 4, 2, 128)])
 def test_scan_function_gradients_match_reference(Bt, T, d, N, chunk):
     """All six gradients (delta, x, B, C, A and a nonzero h0) of a loss
-    over y and hT; chunks of ``chunk`` steps in the backward, a short last
-    one included."""
+    over y and hT; carries every ``chunk`` steps for the backward, a short
+    last chunk included."""
     arrs = _scan_inputs(Bt, T, d, N)
     wy = RNG.normal(size=(Bt, T, d)).astype(np.float32)
     wh = RNG.normal(size=(Bt, d, N)).astype(np.float32)
@@ -206,7 +215,9 @@ def test_scan_function_gradients_match_reference(Bt, T, d, N, chunk):
     want = jax.grad(ref_loss, argnums=tuple(range(6)))(
         *map(jnp.asarray, arrs))
     ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
-    y, hT = MambaScanFunction.apply(*ts, chunk, mamba_scan_ref)
+    y, hT = MambaScanFunction.apply(
+        *ts, functools.partial(mamba_scan_ref, chunk=chunk),
+        functools.partial(mamba_scan_backward_ref, chunk=chunk))
     ((y * torch.from_numpy(wy)).sum()
      + (hT * torch.from_numpy(wh)).sum()).backward()
     for t, ref, name in zip(ts, want, ("delta", "x", "B", "C", "A", "h0")):
@@ -223,7 +234,8 @@ def test_scan_function_bf16_inputs_get_bf16_gradients():
           .requires_grad_(True) for i, a in enumerate(arrs)]
     wide = [t.detach().float().requires_grad_(True) for t in bf]
     for ts in (bf, wide):
-        y, hT = MambaScanFunction.apply(*ts, 8, mamba_scan_ref)
+        y, hT = MambaScanFunction.apply(*ts, mamba_scan_ref,
+                                        mamba_scan_backward_ref)
         (y.sum() + hT.sum()).backward()
     for a, b in zip(bf, wide):
         assert a.grad.dtype == a.dtype
