@@ -333,18 +333,24 @@ def scan_ptxas(build_log: str) -> None:
 
 def backward_ptxas(build_log: str) -> None:
     """Print each backward kernel's registers and spills (flash: the bf16
-    tensor-core and fp32 dK/dV and dQ kernels by head dim; the scan: by
-    dtype, state bucket and lanes); neither the bf16 flash kernels at the
-    trained head dims (80: stablelm-3b; 128) nor any scan instance (the
-    wrapper picks the lanes from the shape) may spill."""
+    wgmma (hd 64 to 128), bf16 mma.sync (hd 8, 16, 32, 256) and fp32 dK/dV
+    and dQ kernels by head dim; the scan: by dtype, state bucket and
+    lanes); neither a bf16 wgmma flash kernel (every full-size model's
+    head dim, with and without a softcap) nor any scan instance (the
+    wrapper picks the lanes from the shape) may spill.  A wgmma kernel's
+    count is its registers at entry: setmaxnreg then gives its consumer
+    warpgroups up to 224."""
     rows = []
+    route = {"wgmma": "bf16 wgmma", "kernel": "bf16 mma.sync",
+             "f32": "fp32"}
     for name, (regs, spills) in ptxas_entries(build_log).items():
-        m = re.search(r"flash_bwd_(dkdv|dq)_(kernel|f32)ILi(\d+)E", name)
+        m = re.search(r"flash_bwd_(dkdv|dq)_(kernel|f32|wgmma)ILi(\d+)E"
+                      r"(Lb([01])E)?", name)
         if m:
-            bf16 = m.group(2) == "kernel"
-            rows.append((f"flash {m.group(1)} {'bf16' if bf16 else 'fp32'}",
-                         f"hd {m.group(3)}", regs, spills,
-                         bf16 and m.group(3) in ("80", "128")))
+            cap = {"1": " softcap", "0": " no softcap"}.get(m.group(5), "")
+            rows.append((f"flash {m.group(1)} {route[m.group(2)]}",
+                         f"hd {m.group(3)}{cap}", regs, spills,
+                         m.group(2) == "wgmma"))
         m = re.search(r"mamba_scan_bwd_kernelI([ft])Li(\d+)ELi(\d+)E", name)
         if m:
             rows.append((f"scan {'bf16' if m.group(1) == 't' else 'fp32'}",
@@ -1087,6 +1093,7 @@ def _flash_bwd_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window,
         fwd_bwd_ms = time_ms(lambda: flash_attention_backward_cuda(
             q, k, v, *flash_attention_cuda(q, k, v, return_lse=True, **kw),
             dout, **kw))
+    split = flash_bwd_split_ms(bwd) if device and bf16 else None
     pairs = allowed_pairs(Sq, Skv, causal, window)
     rows = B * Kh * G
     # the gradient's products: S, dP, dV, dK, dQ (10·hd a pair) and D
@@ -1103,6 +1110,10 @@ def _flash_bwd_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window,
     both = ""
     if library_device_ms is not None:
         both += f" library_device_ms={library_device_ms:.4f}"
+    if device and bf16:
+        both += (" device_ms_by_kernel=" + (",".join(
+            f"{k}:{v:.4f}" for k, v in split.items()) if split
+            else "not measured"))
     if library:
         both += (f" fwd_bwd_ms={fwd_bwd_ms:.4f} library_fwd_bwd_ms="
                  f"{library_fwd_bwd_ms:.4f}")
@@ -1125,6 +1136,8 @@ def _flash_bwd_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window,
                rel_norm={f"d{n}": list(v) for n, v in rel.items()})
     if device:
         res["device_ms"] = device_ms
+        if bf16:
+            res["device_ms_by_kernel"] = split
     if library:
         res.update(fwd_bwd_ms=fwd_bwd_ms,
                    library_fwd_bwd_ms=library_fwd_bwd_ms)
@@ -1133,12 +1146,43 @@ def _flash_bwd_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window,
     return res
 
 
+def flash_bwd_split_ms(fn, calls: int = 10, attempts: int = 3):
+    """Device ms a call of each flash backward kernel (``D``: the row dot
+    products, ``dkdv``, ``dq``) over ``calls`` calls of ``fn`` under
+    ``torch.profiler``; None when ``attempts`` sessions miss a kernel (not
+    measured).  Taken after a case's event times: a profiler session
+    slows later launches on the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tags = (("row_dot", "D"), ("flash_bwd_dkdv", "dkdv"),
+            ("flash_bwd_dq", "dq"))
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split: dict = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for tag, key in tags:
+                if tag in e.name:
+                    t = e.time_range
+                    split[key] = split.get(key, 0.0) + (t.end - t.start) / 1e3
+        if len(split) == len(tags):
+            return {k: v / calls for k, v in split.items()}
+    return None
+
+
 def phase_flash_backward(gen) -> dict:
     """The flash backward kernel at stablelm-3b's training microbatch
     (2 sequences of 2048, 32 heads of 80, causal) in bf16, as the model
     trains (the kernels line's row), and in fp32 (fields of their own);
-    then the card tests' options: GQA, window, softcap, Sq != Skv, rows
-    with no allowed key, hd 8 through 256."""
+    at the GQA configs' training shape (``gqa_train``); then the card
+    tests' options: GQA, window, softcap, Sq != Skv, rows with no allowed
+    key, hd 8 through 256."""
     bf16, f32 = torch.bfloat16, torch.float32
     shape = (2, 2048, 2048, 32, 1, 80, True, 0, 0.0)
     main = _flash_bwd_case("stablelm-3b train microbatch, bf16 tensor cores",
@@ -1148,6 +1192,14 @@ def phase_flash_backward(gen) -> dict:
     main.update({f"fp32_{k}": fp32[k] for k in ("ms", "plain_ms",
                                                 "bound_ms", "kernel_ops_ms",
                                                 "max_abs_err", "rel_norm")})
+    # the GQA configs' training shape (mixtral-8x7b's train_4k sequence,
+    # 8 kv heads of 128, G 4, window 4096: the window holds every causal
+    # pair, so scaled_dot_product_attention's causal backward is the same
+    # function)
+    main["gqa_train"] = _flash_bwd_case(
+        "mixtral-8x7b train microbatch (G 4, hd 128, window 4096), bf16 "
+        "tensor cores", gen, 2, 4096, 4096, 8, 4, 128, True, 4096, 0.0, bf16,
+        library=True, device=True)
     for args in (("gqa+window+softcap hd128", 2, 257, 257, 2, 2, 128, True,
                   100, 30.0, bf16),
                  ("causal Sq<Skv G4 hd128", 1, 130, 190, 2, 4, 128, True, 0,

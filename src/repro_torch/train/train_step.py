@@ -74,15 +74,22 @@ def _accumulating_leaves(params, gdt: Optional[torch.dtype]
 
 def make_train_step(cfg, ocfg: OptConfig, rules: Rules = NO_RULES,
                     grad_transform: Optional[Callable] = None,
-                    place_batch: Optional[Callable] = None):
+                    place_batch: Optional[Callable] = None,
+                    merge: int = 1):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``.  ``params`` and ``opt_state`` are updated in
     place and returned; ``grad_transform(grads) -> grads`` hooks gradient
     compression and the like.  ``metrics``: ``loss``, ``ce``, ``aux``
     (each the mean over the microbatches), ``lr`` and ``grad_norm``, 0-dim
     tensors on the parameters' device.  ``place_batch(mb) -> mb`` places
-    each microbatch (``sharded_train_step``: over the mesh)."""
+    each microbatch (``sharded_train_step``: over the mesh).  ``merge``
+    runs that many neighbouring microbatches as one pass (``sharded_train_
+    step``, where one microbatch does not split over the batch axes; see
+    ``microbatches_a_pass``)."""
     m = max(cfg.grad_accum, 1)
+    if m % merge:
+        raise ValueError(f"{merge} microbatches a pass do not divide {m}")
+    passes = m // merge
     # one microbatch: the gradients in the parameters' dtype, as the
     # reference's value_and_grad gives them
     gdt = dt(cfg.grad_accum_dtype or cfg.opt_state_dtype) if m > 1 else None
@@ -91,7 +98,8 @@ def make_train_step(cfg, ocfg: OptConfig, rules: Rules = NO_RULES,
         leaves, grads, handles = _accumulating_leaves(params, gdt)
         try:
             sums: Dict[str, torch.Tensor] = {}
-            for mb in (_split_microbatches(batch, m) if m > 1 else [batch]):
+            for mb in (_split_microbatches(batch, passes) if passes > 1
+                       else [batch]):
                 if place_batch is not None:
                     mb = place_batch(mb)
                 loss, mets = forward_train(leaves, mb, cfg, rules)
@@ -105,16 +113,39 @@ def make_train_step(cfg, ocfg: OptConfig, rules: Rules = NO_RULES,
             for h in handles:
                 h.remove()
         del leaves
-        if m > 1:
-            grads = tree_map(lambda g: g.div_(m), grads)
+        if passes > 1:
+            grads = tree_map(lambda g: g.div_(passes), grads)
         if grad_transform is not None:
             grads = grad_transform(grads)
         stats = adamw_update(grads, params, opt_state, ocfg, cfg)
-        metrics = {k: v / m for k, v in sums.items()}
+        metrics = {k: v / passes for k, v in sums.items()}
         metrics.update(stats)
         return params, opt_state, metrics
 
     return train_step
+
+
+def microbatches_a_pass(cfg, batch, batch_spec, mesh) -> int:
+    """How many neighbouring microbatches ``sharded_train_step`` runs as
+    one pass: 1 when a microbatch splits evenly over the batch axes of
+    ``batch_spec`` (dim 0), else the least k dividing ``grad_accum`` for
+    which k microbatches do (16 sequences over 32 ranks: k = 2, a pod's
+    ranks one sequence each, the other pod's the next microbatch's), so
+    every rank runs its own share and none the whole microbatch.  This is
+    exact: the loss is a mean of per-sequence terms of equal size (the
+    MoE aux loss a mean of per-group terms, its groups and capacity the
+    same when a group lies within one sequence), so k microbatches in one
+    pass give the mean of their separate gradients.  1 (the microbatch
+    whole on each rank) where no k does, or where MoE groups would span
+    sequences."""
+    from .sharding import axis_size
+    m = max(cfg.grad_accum, 1)
+    x = next(iter(batch.values()))
+    mb, n = x.shape[0] // m, axis_size(mesh, batch_spec[0])
+    if mb % n == 0 or (cfg.n_experts and x.shape[1] % cfg.moe_group_size):
+        return 1
+    return next((k for k in range(2, m + 1) if m % k == 0 and k * mb % n == 0),
+                1)
 
 
 def sharded_train_step(cfg, ocfg: OptConfig, rules: Rules, param_spec_tree,
@@ -131,7 +162,9 @@ def sharded_train_step(cfg, ocfg: OptConfig, rules: Rules, param_spec_tree,
     in place, the counterpart of ``donate_argnums=(0, 1)``.  The batch
     holds the global batch on every rank (plain tensors; a DTensor is
     gathered first); it is split into microbatches as the unsharded step
-    splits it and each is placed by ``batch_specs``.  The model runs on
+    splits it, k neighbouring microbatches a pass where one alone does not
+    split over the batch axes (``microbatches_a_pass``), and each pass is
+    placed by ``batch_specs``.  The model runs on
     DTensors under ``implicit_replication`` (its backward too), the
     kernels on each rank's shards; gradients accumulate into DTensors
     placed as their parameters, AdamW updates each rank's shards in place,
@@ -140,18 +173,22 @@ def sharded_train_step(cfg, ocfg: OptConfig, rules: Rules, param_spec_tree,
     from ..models.layers import implicit_replication
     from .optimizer import opt_state_specs
     from .sharding import distribute, distribute_tree, full
-    step_fn = make_train_step(
-        cfg, ocfg, rules, grad_transform,
-        place_batch=lambda mb: {k: distribute(v, mesh, batch_specs[k])
-                                for k, v in mb.items()})
+    steps: Dict[int, Callable] = {}
     o_specs = opt_state_specs(param_spec_tree)
 
     def train_step(params, opt_state, batch):
         params = distribute_tree(params, param_spec_tree, mesh)
         opt_state = distribute_tree(opt_state, o_specs, mesh)
         batch = {k: full(v) for k, v in batch.items()}
+        k = microbatches_a_pass(cfg, batch, next(iter(batch_specs.values())),
+                                mesh)
+        if k not in steps:
+            steps[k] = make_train_step(
+                cfg, ocfg, rules, grad_transform, merge=k,
+                place_batch=lambda mb: {n: distribute(v, mesh, batch_specs[n])
+                                        for n, v in mb.items()})
         with implicit_replication():
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            params, opt_state, metrics = steps[k](params, opt_state, batch)
         return params, opt_state, {k: full(v) for k, v in metrics.items()}
 
     return train_step

@@ -7,9 +7,10 @@ Copies ``src/`` and ``chip_smoke.py`` into a temporary directory, plants
 three faults in the copy's CUDA sources, builds the copy and holds its
 gradients against the plain versions with ``chip_smoke.py``'s checks:
 
-- ``flash_attention_bwd.cu``: the bf16 dK/dV kernel skips the last query
-  tile it would visit for every key tile in the second half of the
-  sequence (at the training shape [2, 2048, 32, 80] and at a GQA case);
+- ``flash_attention_bwd.cu``: the bf16 wgmma dK/dV kernel (producer and
+  consumers alike) skips the last query tile it would visit for every
+  key block in the second half of the sequence (at the training shape
+  [2, 2048, 32, 80] and at a GQA case, hd 128);
   each of dK and dV must fail ``FLASH_BWD_REL_BF16`` (the relative norm
   over 64-row tiles); whether ``FLASH_TOL_BF16`` alone catches it is
   printed beside;
@@ -33,8 +34,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 FAULTS = {
     "flash_attention_bwd.cu": [(
-        "const int n_it = G * n_qt;",
-        "const int n_it = G * n_qt - (n_qt > 1 && k0 >= Skv / 2 ? 1 : 0);")],
+        "const int steps = G * n_qt;",
+        "const int steps = G * n_qt - (n_qt > 1 && k0 >= Skv / 2 ? 1 : 0);")],
     "mamba_scan_bwd.cu": [
         ("dA[s] = __fmaf_rn(gs, __fmul_rn(dt, ah), dA[s]);",
          "if (k != 1) dA[s] = __fmaf_rn(gs, __fmul_rn(dt, ah), dA[s]);"),

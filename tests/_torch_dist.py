@@ -32,6 +32,10 @@ def _entry(rank, world, store_path, out_dir, job, args):
             world_size=world)
         try:
             res = ("ok", job(rank, world, *args))
+            # leave together: a rank that closes its gloo pairs while a
+            # peer still reads from them fails the peer's collectives with
+            # "connection closed by peer"
+            dist.barrier()
         finally:
             dist.destroy_process_group()
     except Exception:
@@ -58,6 +62,7 @@ def start_ranks(job, world, tmp_path, *args):
 
     def wait(timeout=600):
         deadline = time.monotonic() + timeout
+        ended = ""
         try:
             while not ctx.join(timeout=1):
                 if time.monotonic() > deadline:
@@ -68,9 +73,11 @@ def start_ranks(job, world, tmp_path, *args):
                                        f"steps: {_progress(out_dir, world)}")
         except TimeoutError:
             raise
-        except Exception:
-            pass                # each rank's traceback is in its file
-        return _results(job, world, out_dir)
+        except Exception as e:
+            # a rank ended with an error or a signal (torch then stops the
+            # others); its traceback, if it wrote one, is in its file
+            ended = f" ({e}; last steps: {_progress(out_dir, world)})"
+        return _results(job, world, out_dir, ended)
     return wait
 
 
@@ -94,15 +101,17 @@ def _progress(out_dir, world):
     return last
 
 
-def _results(job, world, out_dir):
+def _results(job, world, out_dir, ended=""):
     results = []
     for r in range(world):
         path = os.path.join(out_dir, f"rank{r}.pkl")
         if not os.path.exists(path):
-            raise RuntimeError(f"rank {r} of {job.__name__} left no result")
+            raise RuntimeError(f"rank {r} of {job.__name__} left no "
+                               f"result{ended}")
         with open(path, "rb") as f:
             status, val = pickle.load(f)
         if status != "ok":
-            raise RuntimeError(f"rank {r} of {job.__name__} failed:\n{val}")
+            raise RuntimeError(f"rank {r} of {job.__name__} failed"
+                               f"{ended}:\n{val}")
         results.append(val)
     return results

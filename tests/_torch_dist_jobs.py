@@ -31,6 +31,7 @@ from repro_torch.train.optimizer import OptConfig, init_opt_state, tree_map
 from repro_torch.train.pipeline_parallel import gpipe_spmd, stack_stage_params
 from repro_torch.train.serve_step import sharded_serve_steps
 from repro_torch.train.sharding import distribute, full, make_rules
+from repro_torch.train import train_step as train_step_mod
 from repro_torch.train.train_step import sharded_train_step
 
 #: the schedule of ``test_torch_train.py``'s two steps, with AdamW's eps
@@ -46,7 +47,9 @@ TRAIN = {"stablelm-a1": ("stablelm-3b", 1, {}),
          "stablelm-a2": ("stablelm-3b", 2, {}),
          "mixtral": ("mixtral-8x7b", 2, {}),
          "mixtral-ep": ("mixtral-8x7b", 2, {"expert_parallel": True}),
-         "falcon": ("falcon-mamba-7b", 2, {})}
+         "falcon": ("falcon-mamba-7b", 2, {}),
+         # microbatches of 1 sequence over 2 data ranks: two a pass
+         "mixtral-a4": ("mixtral-8x7b", 4, {})}
 #: serve cases: (arch, config fields); stablelm's 4 kv heads divide the
 #: model axis (the decode cache's heads over 'model'), one kv head does not
 #: (its sequence over 'model'), falcon's states go over d_inner
@@ -113,10 +116,19 @@ def run_train(mesh, cfg, params_np, batches, counts=None):
     step = sharded_train_step(cfg, OptConfig(**OCFG), sp["rules"],
                               sp["param_specs"], sp["batch_specs"], mesh,
                               grad_transform=lambda g: keep(grads, g))
-    mets, launches, bwd_launches = [], [], []
+    mets, launches, bwd_launches, rows = [], [], [], []
+    fwd = train_step_mod.forward_train
+
+    def spy(params, batch, cfg, rules):
+        rows.append(batch["tokens"].to_local().shape[0])
+        return fwd(params, batch, cfg, rules)
     for toks in batches:
         before = dict(counts or {})
-        p2, opt2, m = step(p, opt, {"tokens": torch.from_numpy(toks)})
+        train_step_mod.forward_train = spy
+        try:
+            p2, opt2, m = step(p, opt, {"tokens": torch.from_numpy(toks)})
+        finally:
+            train_step_mod.forward_train = fwd
         assert all(a is b for a, b in zip(tree_leaves(p2), tree_leaves(p)))
         p, opt = p2, opt2
         mets.append({k: float(v) for k, v in m.items()})
@@ -127,7 +139,7 @@ def run_train(mesh, cfg, params_np, batches, counts=None):
     return {"metrics": mets, "params": to_np(p), "m": to_np(opt["m"]),
             "grads": grads, "step": int(full(opt["step"])),
             "launches": launches, "backward_launches": bwd_launches,
-            "all_dtensor": placed}
+            "all_dtensor": placed, "local_rows": rows}
 
 
 def keep(store, grads):

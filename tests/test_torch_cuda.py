@@ -984,6 +984,29 @@ def test_flash_backward_kernel_matches_plain(dev, dtype, B, Sq, Skv, Kh, G,
             assert _worst_tile_rel_norm(a, w) <= 1e-2, name
 
 
+@pytest.mark.parametrize("hd,G,window", [(64, 1, 0), (80, 1, 0),
+                                          (96, 2, 300), (128, 4, 4096)])
+def test_flash_backward_wgmma_reruns_are_bit_identical(dev, hd, G, window):
+    """The bf16 wgmma route (hd 64 to 128) over many key blocks and query
+    tiles a block (the TMA ring wraps many times): three launches give the
+    same bits, the third after a launch at another shape."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+    q, k, v, dout = _flash_bwd_inputs(dev, torch.bfloat16, 2, 1030, 1030, 2,
+                                      G, hd)
+    kw = dict(causal=True, window=window, softcap=0.0)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    runs = [flash_attention_backward_cuda(q, k, v, out, lse, dout, **kw)
+            for _ in range(2)]
+    other = _flash_bwd_inputs(dev, torch.bfloat16, 1, 300, 300, 1, G, hd)
+    o2, l2 = flash_attention_cuda(*other[:3], return_lse=True)
+    flash_attention_backward_cuda(*other[:3], o2, l2, other[3])
+    runs.append(flash_attention_backward_cuda(q, k, v, out, lse, dout, **kw))
+    for name, a, b, c in zip("qkv", *runs):
+        assert _same(a, b) and _same(a, c), name
+        assert bool(torch.isfinite(a.float()).all()), name
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Bt,T,d,N,lanes", [
     (2, 100, 48, 16, 1), (2, 100, 48, 16, 2), (1, 77, 130, 16, 4),

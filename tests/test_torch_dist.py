@@ -139,6 +139,15 @@ def test_sharded_train_steps_equal_the_unsharded(runs, case):
     assert got["all_dtensor"]
 
 
+def test_a_microbatch_the_data_axis_does_not_divide_is_split(runs):
+    """mixtral at 4 microbatches of 1 sequence over data 2: two
+    microbatches a pass, each rank one sequence of it (its share, not the
+    whole pass), and the steps equal the unsharded ones (above)."""
+    got = J.ok(runs[0]["train"]["mixtral-a4"])
+    assert got["local_rows"] == [1] * 4           # 2 passes a step, 2 steps
+    assert J.ok(runs[0]["train"]["mixtral"])["local_rows"] == [1] * 4
+
+
 def test_flash_runs_on_each_ranks_shards(runs):
     """attn_impl 'cuda' (the kernels' plain versions standing in for the
     launches): FlashAttentionFunction under local_map, on every rank the

@@ -343,6 +343,27 @@ PORT_PROG = textwrap.dedent("""
     out["tiny"] = {"args": r4["args"],
                    "flops": r4["counter"].totals()["flops"],
                    "alias": r4["alias_bytes"]}
+
+    # qwen2.5-32b x train_4k on 2x16x16, cut to one layer at full width:
+    # a microbatch of 16 sequences does not split over 32 batch ranks, so
+    # two run as one pass, each rank one sequence of it
+    import repro_torch.train.train_step as ts
+    rows, fwd = [], ts.forward_train
+
+    def spy(params, batch, cfg, rules):
+        rows.append(list(batch["tokens"].to_local().shape))
+        return fwd(params, batch, cfg, rules)
+    ts.forward_train = spy
+    cut = get_config("qwen2.5-32b").replace(n_layers=1)
+    shape = get_shapes("qwen2.5-32b")["train_4k"]
+    mesh512 = make_fake_production_mesh(multi_pod=True)
+    r = dryrun.trace_step(cut, shape, mesh512)
+    ts.forward_train = fwd
+    out["multi_pod"] = {
+        "rows": rows, "accum": r["cfg"].grad_accum,
+        "batch": shape.global_batch, "seq": shape.seq_len,
+        "peak": dryrun.record(r, r["cfg"], shape, 512)["memory"][
+            "peak_bytes_per_device"]}
     print("PORT_JSON " + json.dumps(out))
 """)
 
@@ -494,3 +515,15 @@ def test_tiny_train_argument_bytes_equal_the_reference(runs):
     assert runs["PORT"]["tiny"]["alias"] == port["params"] + \
         port["opt_state"]
     assert runs["PORT"]["tiny"]["flops"] > 0
+
+
+def test_a_microbatch_the_batch_axes_do_not_divide_is_split(runs):
+    """16 sequences a microbatch over the 32 ranks of (pod, data): the
+    step runs two microbatches a pass, so each rank's local batch is one
+    sequence, not the whole microbatch, and one full-width layer's step
+    fits a card."""
+    d = runs["PORT"]["multi_pod"]
+    mb = d["batch"] // d["accum"]
+    assert mb == 16 and 32 % mb == 0
+    assert d["rows"] == [[1, d["seq"]]] * (d["accum"] // 2)
+    assert d["peak"] < 80 * 2**30
