@@ -32,14 +32,16 @@ Phases (any failure raises and the script exits non-zero):
    slows later launches on the host).  fp32 flash attention runs
    at every head dim.  The grouped sums also run at the sharded runs'
    shapes: a shard's Q4.1, Q1.1 and supplier partials and the mesh
-   combiner's sums.  The two backward kernels (training's gradients) at
-   the trained models' microbatch shapes (flash: stablelm-3b's [2, 2048,
-   32, 80] bf16, causal, beside scaled_dot_product_attention's forward +
-   backward; the scan: falcon-mamba-7b's Bt 1, T 2048, d 8192, N 16 with
-   bf16 delta/x, its lane splits timed) and at the card tests' shapes,
-   each against its plain version from the forward kernel's own output and
-   log-sum-exp or carries, twice (bit-identical), with its median time,
-   device time, bound and the plain version's time.
+   combiner's sums (the supplier's on the wide direct route, one launch),
+   and at 2^20 cells on the partitioned route beside ``index_add_``.  The
+   two backward kernels (training's gradients) at the trained models'
+   microbatch shapes (flash: stablelm-3b's [2, 2048, 32, 80] bf16, causal,
+   beside scaled_dot_product_attention's forward + backward; the scan:
+   falcon-mamba-7b's Bt 1, T 2048, d 8192, N 16 with bf16 delta/x, each of
+   its four launches timed) and at the card tests' shapes, each against
+   its plain version from the forward kernel's own output and log-sum-exp
+   or carries, twice (bit-identical), with its median time, device time,
+   bound and the plain version's time.
 3. ETL main path: SSB scale factor 1 (seed 42) through
    ``repro_torch.Session.run`` on backend ``torch`` with segment fusion:
    Q4.1 on the optimized and streaming engines, Q4.1s (Q4.1 cut into two
@@ -334,10 +336,10 @@ def scan_ptxas(build_log: str) -> None:
 def backward_ptxas(build_log: str) -> None:
     """Print each backward kernel's registers and spills (flash: the bf16
     wgmma (hd 64 to 128), bf16 mma.sync (hd 8, 16, 32, 256) and fp32 dK/dV
-    and dQ kernels by head dim; the scan: by dtype, state bucket and
-    lanes); neither a bf16 wgmma flash kernel (every full-size model's
-    head dim, with and without a softcap) nor any scan instance (the
-    wrapper picks the lanes from the shape) may spill.  A wgmma kernel's
+    and dQ kernels by head dim; the scan: its local sweep and its walk by
+    dtype and state bucket); neither a bf16 wgmma flash kernel (every
+    full-size model's head dim, with and without a softcap) nor any scan
+    instance (each bucket is on some model's path) may spill.  A wgmma kernel's
     count is its registers at entry: setmaxnreg then gives its consumer
     warpgroups up to 224."""
     rows = []
@@ -351,11 +353,11 @@ def backward_ptxas(build_log: str) -> None:
             rows.append((f"flash {m.group(1)} {route[m.group(2)]}",
                          f"hd {m.group(3)}{cap}", regs, spills,
                          m.group(2) == "wgmma"))
-        m = re.search(r"mamba_scan_bwd_kernelI([ft])Li(\d+)ELi(\d+)E", name)
+        m = re.search(r"mamba_scan_bwd_(walk|local)I([ft])Li(\d+)E", name)
         if m:
-            rows.append((f"scan {'bf16' if m.group(1) == 't' else 'fp32'}",
-                         f"N<={m.group(2)} lanes {m.group(3)}", regs, spills,
-                         True))
+            rows.append((f"scan {m.group(1)} "
+                         f"{'bf16' if m.group(2) == 't' else 'fp32'}",
+                         f"N<={m.group(3)}", regs, spills, True))
     if not rows:
         log("  backward ptxas: no report (the library was already built)")
         return
@@ -364,6 +366,29 @@ def backward_ptxas(build_log: str) -> None:
             f"{spills} bytes of spills")
         if strict and spills:
             raise AssertionError(f"{kind} {shape} spills {spills} bytes")
+
+
+def grouped_ptxas(build_log: str) -> None:
+    """Print each grouped-sum direct-route instance's registers and spills
+    (value columns kept in registers, 32-row batches loaded at a time,
+    blocks an SM it is bounded for: the narrow one and the two wide ones,
+    in each of the two sources); none may spill."""
+    rows = set()
+    for name, (regs, spills) in ptxas_entries(build_log).items():
+        m = re.search(r"gs_directILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        if m:
+            rows.add((int(m.group(1)), int(m.group(2)), int(m.group(3)),
+                      regs, spills))
+    if not rows:
+        log("  grouped-sum ptxas: no report (the library was already built)")
+        return
+    for cols, batches, blocks, regs, spills in sorted(rows):
+        log(f"  grouped-sum ptxas: direct route, {cols} columns, {batches} "
+            f"batches in flight, {blocks} block(s) an SM: {regs} registers "
+            f"a thread, {spills} bytes of spills")
+        if spills:
+            raise AssertionError(f"gs_direct<{cols}, {batches}, {blocks}> "
+                                 f"spills {spills} bytes")
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -532,21 +557,29 @@ def _grouped_case(label, ids, vals, n_groups, kernel, plain, library,
     out_cols = c + (1 if with_counts else 0)
     nbytes = n * 4 + n * c * 4 + n_groups * out_cols * 4
     b, by = bound_ms(nbytes, n * out_cols)
-    from repro_torch.kernels._grouped_sum import is_direct
+    from repro_torch.kernels._grouped_sum import is_direct, is_wide
     direct = is_direct(n_groups, c, with_counts)
-    log(f"  {label}: rows={n} C={c} groups={n_groups} "
-        f"route={'direct' if direct else 'partitioned'} "
+    route = ("wide" if is_wide(n_groups, c, with_counts) else "narrow"
+             if direct else "partitioned")
+    fmt = lambda v: f"{v:.4f}" if v is not None else "not measured"
+    # the library call's device time beside the kernel's where the
+    # partitioned route's six launches meet one index_add_
+    library_device_ms = (call_kernels(library)[1] if not direct else None)
+    lib_dev = (f" library_device_ms={fmt(library_device_ms)}"
+               if not direct else "")
+    log(f"  {label}: rows={n} C={c} groups={n_groups} route={route} "
         f"{'exact' if exact else 'order-bound'} max_abs_err={err:.6g} "
         f"max_rel_err={rel:.3g} err_vs_f64={err64:.3g} ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f} slower_than_plain={ms > plain_ms} "
-        f"library_ms={library_ms:.4f} bound_ms={b:.4f} ({by}) "
+        f"library_ms={library_ms:.4f} faster_than_library="
+        f"{ms < library_ms} bound_ms={b:.4f} ({by}) "
         f"bit_stable=True kernels_a_call="
         f"{n_kernels if n_kernels is not None else 'not measured'} "
-        f"device_ms_a_call="
-        f"{f'{device_ms:.4f}' if device_ms is not None else 'not measured'}")
+        f"device_ms_a_call={fmt(device_ms)}{lib_dev}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b,
                 bound_by=by, max_abs_err=err, kernels_a_call=n_kernels,
-                direct=direct)
+                device_ms=device_ms, library_device_ms=library_device_ms,
+                direct=direct, route=route)
 
 
 def call_kernels(fn, attempts: int = 3):
@@ -573,14 +606,9 @@ def call_kernels(fn, attempts: int = 3):
 
 
 def check_main_launches(label: str, m: dict) -> None:
-    """A grouped sum on the direct route runs at most two kernels a call.
-    The partitioned route (an id space too large for a warp's shared
-    partial, as the supplier shard's 2,000 cells) also runs its counting
-    sort's passes: it is exempt, and its count is printed."""
-    if not m["direct"]:
-        log(f"  {label}: partitioned route, kernels_a_call="
-            f"{m['kernels_a_call']} (exempt from the two-kernel check)")
-        return
+    """A grouped sum at a main-path or sharded shape runs at most two
+    kernels a call, on every route (the direct routes, narrow and wide,
+    launch one; the supplier shard and combiner take the wide one)."""
     if m["kernels_a_call"] is not None and m["kernels_a_call"] > 2:
         raise AssertionError(f"{label}: one call launched "
                              f"{m['kernels_a_call']} device kernels, more "
@@ -641,24 +669,41 @@ def phase_radix_groupby(rng) -> dict:
     ids = torch.from_numpy(rng.choice(keys, n).astype(np.int32)).to(dev)
     v = torch.from_numpy(rng.integers(90_000, 10_000_000, (n, 1))
                          .astype(np.float32)).to(dev)
-    check_main_launches("radix_groupby[supplier_shard]", _grouped_case(
+    shard = _grouped_case(
         "radix_groupby[supplier_shard]", ids, v, cells, kernel,
         radix_groupby_ref, _index_add_yardstick(ids, v, cells, True),
-        with_counts=True, exact=False))
+        with_counts=True, exact=False)
+    check_main_launches("radix_groupby[supplier_shard]", shard)
+    # the same ids with small integer values: sums and counts exact
+    v = torch.from_numpy(rng.integers(0, 8, (n, 1)).astype(np.float32)
+                         ).to(dev)
+    check_main_launches("radix_groupby[supplier_shard_int]", _grouped_case(
+        "radix_groupby[supplier_shard_int]", ids, v, cells, kernel,
+        radix_groupby_ref, _index_add_yardstick(ids, v, cells, True),
+        with_counts=True, exact=True))
     # many partitions: 2^20 cells, 4M rows, ~2% padding rows
     n, cells = 4 << 20, 1 << 20
     big = rng.integers(0, cells, n).astype(np.int32)
     big[rng.random(n) < 0.02] = -1
     ids = torch.from_numpy(big).to(dev)
+    extra = {"supplier_shard": shard}
     for label, vals, exact in (
             ("2^20cells_int", rng.integers(0, 8, (n, 1)), True),
             ("2^20cells_float", rng.random((n, 2)), False)):
         v = torch.from_numpy(vals.astype(np.float32)).to(dev)
-        _grouped_case(f"radix_groupby[{label}]", ids, v, cells,
-                      kernel, radix_groupby_ref,
-                      _index_add_yardstick(ids, v, cells, True),
-                      with_counts=True, exact=exact)
-    return results["q41_profit"]
+        extra[label] = _grouped_case(
+            f"radix_groupby[{label}]", ids, v, cells, kernel,
+            radix_groupby_ref, _index_add_yardstick(ids, v, cells, True),
+            with_counts=True, exact=exact)
+    return dict(results["q41_profit"], **{
+        k: _case_summary(m) for k, m in extra.items()})
+
+
+def _case_summary(m: dict) -> dict:
+    """A grouped-sum case's numbers for the kernels line."""
+    return {k: m[k] for k in ("route", "ms", "device_ms", "kernels_a_call",
+                              "library_ms", "library_device_ms", "bound_ms",
+                              "max_abs_err")}
 
 
 def phase_segment_sum(rng) -> dict:
@@ -690,23 +735,28 @@ def phase_segment_sum(rng) -> dict:
         "segment_sum[q11_shard]", ids[:n], v, 1, kernel, segment_sum_ref,
         _index_add_yardstick(ids[:n], v, 1, False), with_counts=False,
         exact=False))
-    for label, comb in (("q41_combiner", np.tile(np.arange(35), 4)),
-                        ("supplier_combiner", rng.permutation(2_000))):
+    extra = {}
+    for label, comb, hi in (
+            ("q41_combiner", np.tile(np.arange(35), 4), 1 << 30),
+            ("supplier_combiner", rng.permutation(2_000), 1 << 30),
+            ("supplier_combiner_int", rng.permutation(2_000), 1 << 20)):
         g = int(comb.max()) + 1
         cids = torch.from_numpy(comb.astype(np.int32)).to(dev)
-        v = torch.from_numpy(rng.integers(30_000, 1 << 30, (len(comb), 1))
+        v = torch.from_numpy(rng.integers(30_000, hi, (len(comb), 1))
                              .astype(np.float32)).to(dev)
-        check_main_launches(f"segment_sum[{label}]", _grouped_case(
+        extra[label] = _grouped_case(
             f"segment_sum[{label}]", cids, v, g, kernel, segment_sum_ref,
             _index_add_yardstick(cids, v, g, False), with_counts=False,
-            exact=False))
+            exact=label.endswith("_int"))
+        check_main_launches(f"segment_sum[{label}]", extra[label])
     n, groups = 1 << 20, 4096
     ids = torch.from_numpy(rng.integers(0, groups, n).astype(np.int32)).to(dev)
     v = torch.from_numpy(rng.integers(0, 16, (n, 1)).astype(np.float32)).to(dev)
     _grouped_case("segment_sum[G=4096_int]", ids, v, groups, kernel,
                   segment_sum_ref, _index_add_yardstick(ids, v, groups, False),
                   with_counts=False, exact=True)
-    return results["q11_revenue"]
+    return dict(results["q11_revenue"], supplier_combiner=_case_summary(
+        extra["supplier_combiner"]))
 
 
 # ---------------------------------------------------------------------------
@@ -1093,7 +1143,8 @@ def _flash_bwd_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window,
         fwd_bwd_ms = time_ms(lambda: flash_attention_backward_cuda(
             q, k, v, *flash_attention_cuda(q, k, v, return_lse=True, **kw),
             dout, **kw))
-    split = flash_bwd_split_ms(bwd) if device and bf16 else None
+    split = (device_split_ms(bwd, FLASH_BWD_KERNELS) if device and bf16
+             else None)
     pairs = allowed_pairs(Sq, Skv, causal, window)
     rows = B * Kh * G
     # the gradient's products: S, dP, dV, dK, dQ (10·hd a pair) and D
@@ -1146,16 +1197,15 @@ def _flash_bwd_case(label, gen, B, Sq, Skv, Kh, G, hd, causal, window,
     return res
 
 
-def flash_bwd_split_ms(fn, calls: int = 10, attempts: int = 3):
-    """Device ms a call of each flash backward kernel (``D``: the row dot
-    products, ``dkdv``, ``dq``) over ``calls`` calls of ``fn`` under
-    ``torch.profiler``; None when ``attempts`` sessions miss a kernel (not
-    measured).  Taken after a case's event times: a profiler session
-    slows later launches on the host."""
+def device_split_ms(fn, tags, calls: int = 10, attempts: int = 3):
+    """Device ms a call of each kernel of ``fn`` over ``calls`` calls under
+    ``torch.profiler``: ``tags`` pairs a substring of a kernel's name with
+    its key (the flash backward's ``FLASH_BWD_KERNELS``, the scan
+    backward's ``SCAN_BWD_KERNELS``); None when ``attempts`` sessions miss
+    one (not measured).  Taken after a case's event times: a profiler
+    session slows later launches on the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    tags = (("row_dot", "D"), ("flash_bwd_dkdv", "dkdv"),
-            ("flash_bwd_dq", "dq"))
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1172,8 +1222,17 @@ def flash_bwd_split_ms(fn, calls: int = 10, attempts: int = 3):
                     t = e.time_range
                     split[key] = split.get(key, 0.0) + (t.end - t.start) / 1e3
         if len(split) == len(tags):
-            return {k: v / calls for k, v in split.items()}
+            return {key: split[key] / calls for _, key in tags}
     return None
+
+
+#: the flash backward's kernels: the row dot products, dK/dV, dQ
+FLASH_BWD_KERNELS = (("row_dot", "D"), ("flash_bwd_dkdv", "dkdv"),
+                     ("flash_bwd_dq", "dq"))
+#: the scan backward's four launches: the time chunks' sweeps, their ends
+#: chained, the full walks, the sums
+SCAN_BWD_KERNELS = tuple((f"mamba_scan_bwd_{k}", k)
+                         for k in ("local", "cross", "walk", "reduce"))
 
 
 def phase_flash_backward(gen) -> dict:
@@ -1223,10 +1282,12 @@ def phase_flash_backward(gen) -> dict:
 
 def _scan_bwd_case(label, gen, Bt, T, d, N, dtype, lanes=None,
                    device: bool = False) -> dict:
-    """The backward kernel on the forward kernel's own carries, against
-    ``mamba_scan_backward_ref`` on the same (delta and x widened to fp32:
-    with bf16 ones the kernel's gradients of them must be exactly its fp32
-    gradients of the widened values, rounded)."""
+    """The backward kernels on the forward kernel's own carries (its lane
+    split ``lanes``), against ``mamba_scan_backward_ref`` on the same
+    (delta and x widened to fp32: with bf16 ones the kernels' gradients of
+    them must be exactly their fp32 gradients of the widened values,
+    rounded).  ``device``: also the device time a call, back to back, and
+    each of the four passes' from ``torch.profiler``."""
     from repro_torch.kernels.mamba_scan import mamba_scan_backward_ref
     from repro_torch.kernels.mamba_scan.ops import (mamba_scan_backward_cuda,
                                                     mamba_scan_cuda)
@@ -1235,11 +1296,10 @@ def _scan_bwd_case(label, gen, Bt, T, d, N, dtype, lanes=None,
     dy = torch.randn((Bt, T, d), generator=gen, device=dev)
     dhT = torch.randn((Bt, d, N), generator=gen, device=dev)
     _, _, carries = mamba_scan_cuda(*args, lanes=lanes, carries=True)
-    bwd = lambda: mamba_scan_backward_cuda(*args, carries, dy, dhT,
-                                           lanes=lanes)
+    bwd = lambda: mamba_scan_backward_cuda(*args, carries, dy, dhT)
     a, b = bwd(), bwd()
     wide = [t.float() for t in args[:2]] + list(args[2:])
-    f = mamba_scan_backward_cuda(*wide, carries, dy, dhT, lanes=lanes)
+    f = mamba_scan_backward_cuda(*wide, carries, dy, dhT)
     r = mamba_scan_backward_ref(*wide, carries, dy, dhT)
     torch.cuda.synchronize()
     err, long_sum_rel = 0.0, {}
@@ -1262,6 +1322,7 @@ def _scan_bwd_case(label, gen, Bt, T, d, N, dtype, lanes=None,
     del a, b, f, r
     ms = time_ms(bwd)
     device_ms = back_to_back_ms(bwd) if device else None
+    split = device_split_ms(bwd, SCAN_BWD_KERNELS) if device else None
     plain_ms = time_ms(lambda: mamba_scan_backward_ref(
         *args, carries, dy, dhT), iters=3, warmup=1)
     # one exp2 a (b, t, c, n) against the bytes read once (delta, x, B,
@@ -1270,6 +1331,14 @@ def _scan_bwd_case(label, gen, Bt, T, d, N, dtype, lanes=None,
     size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     nbytes = size(args[:5]) + size((carries, dy, dhT)) + size(args)
     bnd, by = bound_ms(nbytes, Bt * T * d * N, PEAK_EX2_S)
+    # the design's own work: two exp2 a (b, t, c, n), the local sweep's
+    # and the walk's rebuild
+    kernel_ops_ms = 2 * Bt * T * d * N / PEAK_EX2_S * 1e3
+    split_s = ""
+    if device:
+        split_s = " device_ms_by_pass=" + (",".join(
+            f"{k}:{v:.4f}" for k, v in split.items()) if split
+            else "not measured")
     log(f"  mamba_scan_backward[{label}]: Bt={Bt} T={T} d={d} N={N} "
         f"{str(dtype).split('.')[-1]} lanes={lanes or 'default'} "
         f"carries={tuple(carries.shape)} max_abs_err={err:.3g} "
@@ -1277,42 +1346,31 @@ def _scan_bwd_case(label, gen, Bt, T, d, N, dtype, lanes=None,
         f"their max gap / max value: "
         + ", ".join(f"{k} {v:.3g}" for k, v in long_sum_rel.items())
         + ") "
-        f"ms={ms:.4f}{f' device_ms={device_ms:.4f}' if device else ''} "
-        f"plain_ms={plain_ms:.4f} library_ms=none bound_ms={bnd:.4f} "
-        f"({by}) share_of_bound={bnd / ms:.4f} bit_stable=True "
-        f"same_as_widened=True")
+        f"ms={ms:.4f}{f' device_ms={device_ms:.4f}' if device else ''}"
+        f"{split_s} plain_ms={plain_ms:.4f} library_ms=none "
+        f"bound_ms={bnd:.4f} ({by}) kernel_ops_ms={kernel_ops_ms:.4f} "
+        f"(2 exp2 a state a step) share_of_bound={bnd / ms:.4f} "
+        f"bit_stable=True same_as_widened=True")
     res = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
-               bound_by=by, max_abs_err=err, long_sum_rel=long_sum_rel)
+               bound_by=by, max_abs_err=err, long_sum_rel=long_sum_rel,
+               kernel_ops_ms=kernel_ops_ms)
     if device:
         res["device_ms"] = device_ms
+        res["device_ms_by_pass"] = split
     return res
 
 
 def phase_scan_backward(gen) -> dict:
-    """The scan's backward kernel at falcon-mamba-7b's training microbatch
+    """The scan's backward kernels at falcon-mamba-7b's training microbatch
     (1 sequence of 2048, d_inner 8192, N 16) with bf16 delta/x, as the
-    model passes them (the kernels line's row), each lane split timed
-    there; then the card tests' options: N 4, 8, 32, a ragged last chunk,
-    d not a multiple of the 64-channel block, fp32 delta/x."""
-    from repro_torch.kernels.mamba_scan.ops import (default_lanes,
-                                                    mamba_scan_backward_cuda,
-                                                    mamba_scan_cuda)
+    model passes them (the kernels line's row), with each pass's device
+    time; then the card tests' options: N 4, 8, 32, a ragged last time
+    chunk, d not a multiple of the 64-channel block, fp32 delta/x, and
+    carries from each of the forward's lane splits."""
     bf16, f32 = torch.bfloat16, torch.float32
     shape = (1, 2048, 8192, 16)
     main = _scan_bwd_case("falcon-mamba-7b train microbatch, bf16 delta/x",
                           gen, *shape, bf16, device=True)
-    args = _scan_inputs(gen, *shape, False, bf16)
-    dy = torch.randn(shape[:3], generator=gen, device=gen.device)
-    dhT = torch.zeros((1, shape[2], shape[3]), device=gen.device)
-    _, _, carries = mamba_scan_cuda(*args, carries=True)
-    lanes_ms = {lanes: time_ms(lambda: mamba_scan_backward_cuda(
-        *args, carries, dy, dhT, lanes=lanes)) for lanes in (1, 2, 4)}
-    log(f"  mamba_scan_backward lanes a channel (bf16, Bt=1 T=2048 d=8192 "
-        f"N=16): " + ", ".join(f"{k}: {v:.4f} ms" for k, v in
-                               lanes_ms.items())
-        + f"; the wrapper takes {default_lanes(1, shape[2])}")
-    main["lanes_ms"] = lanes_ms
-    del args, dy, dhT, carries
     for args in (("ragged T/d N=16 fp32", 3, 333, 1000, 16, f32),
                  ("N=4 lanes 1 bf16", 2, 45, 64, 4, bf16, 1),
                  ("N=8 lanes 4 fp32", 1, 100, 130, 8, f32, 4),
@@ -3206,6 +3264,7 @@ def main() -> int:
     flash_ptxas(_cuda.build_log)
     scan_ptxas(_cuda.build_log)
     probe_ptxas(_cuda.build_log)
+    grouped_ptxas(_cuda.build_log)
     backward_ptxas(_cuda.build_log)
     bk = resolve_backend("torch")
     rng = np.random.default_rng(0)
@@ -3328,6 +3387,16 @@ def main() -> int:
                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
+        if name in ("radix_groupby", "segment_sum"):
+            row.update({k: v for k, v in m.items() if isinstance(v, dict)})
+            row["cases_note"] = (
+                "the row's own numbers are the main path's (SSB Q4.1, Q1.1); "
+                "supplier_shard (1.5M rows, 2,000 ids + counts) and "
+                "supplier_combiner (2,000 rows, 2,000 ids): the hash-mode "
+                "supplier flow's sharded sums, on the wide direct route; "
+                "2^20cells_*: 4M rows over 2^20 ids, the partitioned route, "
+                "device_ms and library_device_ms (index_add_) from "
+                "torch.profiler")
         if name == "hash_probe":
             row.update({k: m[k] for k in ("device_ms", "other_tables")})
             row["probe_note"] = ("1,048,576 rows against part; device_ms "
@@ -3365,7 +3434,8 @@ def main() -> int:
                 "no TPU kernel: the reference trains by jax.grad of its "
                 "plain function at this line, which XLA compiles")
             row.update({k: v for k, v in m.items() if k.startswith("fp32_")
-                        or k in ("device_ms", "lanes_ms", "kernel_ops_ms",
+                        or k in ("device_ms", "device_ms_by_pass",
+                                 "kernel_ops_ms",
                                  "fwd_bwd_ms", "library_fwd_bwd_ms",
                                  "library_device_ms",
                                  "rel_norm", "long_sum_rel")})
@@ -3419,6 +3489,14 @@ def main() -> int:
                                    "the selective scan's gradient")
             row["shape_note"] = ("Bt 1, T 2048, d 8192, N 16, bf16 delta/x "
                                  "(falcon-mamba-7b's training microbatch)")
+            row["bound_note"] = ("bound_ms: the function's own bytes (its "
+                                 "inputs, the carries and the gradients); "
+                                 "kernel_ops_ms: the time-parallel design's "
+                                 "two exp2 a state a step at the "
+                                 "special-function units' peak; "
+                                 "device_ms_by_pass: the four launches "
+                                 "(local sweeps, cross-chunk pass, walks, "
+                                 "sums) from torch.profiler")
         kernels.append(row)
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

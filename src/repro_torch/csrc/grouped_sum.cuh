@@ -16,13 +16,20 @@
 // every float addition happens in an order fixed by (n, n_groups, C) and the
 // input alone.  Integer atomics (the partition histogram) are order-free.
 //
-// Two routes, chosen from the shapes alone (direct_route):
+// Three routes, chosen from the shapes alone (direct_route, wide_route):
 //
-// Direct route, when a warp's partial [n_groups, cols] fits kDirectFloats
-// (8 warps in 48 KB): no sort, one cooperative launch, gs_direct.
-//   - Block b takes rows [b R, (b + 1) R), R from n alone (the plan: about
-//     two blocks per SM of 132, never more than kDirectMaxBlocks, so the
-//     grid is co-resident); warp w a contiguous eighth of them.
+// Direct route, when a warp's partial [n_groups, cols] fits kWideFloats:
+// no sort, one cooperative launch, gs_direct.
+//   - Block b takes rows [b R, (b + 1) R); warp w a contiguous eighth of
+//     them.  Narrow (a partial within kDirectFloats, 8 warps in 48 KB): R
+//     from n alone (the plan: about two blocks per SM of 132, never more
+//     than kDirectMaxBlocks, so the grid is co-resident).  Wide (within
+//     kWideFloats, 8 warps in up to 224 KB of Hopper's opt-in dynamic
+//     shared memory): R from n and the grid, one block an SM (the wrapper
+//     takes the SMs within the blocks the card holds at once at that
+//     shared memory: the occupancy API times the SMs, gs_wide_blocks).  With
+//     only 8 warps an SM left to hide the loads' latency, a wide-route
+//     warp loads kWideBatches batches of 32 rows before it adds the first.
 //   - A warp takes 32 rows at a time, lane j row j (coalesced loads).
 //     __match_any_sync groups the lanes by id.  A batch of one id sums over
 //     the lanes in a fixed butterfly and lane 0 adds the result; otherwise
@@ -36,11 +43,14 @@
 //   This replaces the TPU's one-hot matmul with fp32 adds in a fixed order.
 //   At the SSB shapes (about 0.2 us of bytes) launches and latency are the
 //   limit, so the route spends one launch and keeps every row's work off a
-//   serial chain: a warp's 32 rows take one load and a few rounds.
+//   serial chain: a warp's 32 rows take one load and a few rounds.  The
+//   wide route takes the supplier shard (2,000 ids with counts, 4,000
+//   cells) and the supplier combiner (2,000 cells) in one launch, where the
+//   partitioned route below spent six and moved every row twice more.
 //
-// Partitioned route, for larger id spaces: the id space is cut into
-// partitions of kPartGroups ids (the id's high bits), as on the TPU, and
-// rows are first moved into partition order:
+// Partitioned route, for id spaces beyond kWideFloats: the id space is cut
+// into partitions of kPartGroups ids (the id's high bits), as on the TPU,
+// and rows are first moved into partition order:
 //   1. gs_hist        per row block: rows per partition (integer atomics)
 //   2. gs_scan_blocks one warp per partition: exclusive prefix over row
 //                     blocks, 32 blocks a step
@@ -67,6 +77,7 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <initializer_list>
 
 namespace {
 
@@ -77,18 +88,35 @@ constexpr int kTileFloats = 2048;                 // their values, at most
 constexpr int kScatterBatches = 8;                // id loads in flight
 constexpr int kMaxSmemParts = 12288;              // int32 counters in 48 KB
 constexpr int kDirectWarps = 8;
-// floats of shared memory a warp of the direct route may hold (48 KB over
-// kDirectWarps): its partial of n_groups x cols
+// floats of shared memory a warp of the narrow direct route may hold (48 KB
+// over kDirectWarps): its partial of n_groups x cols
 constexpr int kDirectFloats = 12288 / kDirectWarps;
-// __launch_bounds__ fits kDirectMinBlocks direct-route blocks on an SM (at
-// most 85 registers a thread; 48 KB of shared memory a block at most), so
-// the plan's largest grid, kDirectMaxBlocks (TARGET_BLOCKS), is co-resident,
+// __launch_bounds__ fits kDirectMinBlocks narrow blocks on an SM (at most
+// 85 registers a thread; 48 KB of shared memory a block at most), so the
+// plan's largest grid, kDirectMaxBlocks (TARGET_BLOCKS), is co-resident,
 // as a cooperative launch needs, on any card of 88 SMs or more
 constexpr int kDirectMinBlocks = 3;
 constexpr int kDirectMaxBlocks = 264;
+// floats a warp of the wide route may hold: 8 warps in 224 KB of the
+// 227 KB a block may opt into on Hopper (WIDE_FLOATS)
+constexpr int kWideFloats = 7168;
+// batches of 32 rows a wide-route warp loads before it adds
+constexpr int kWideBatches = 8;
+// cells a warp sums at a time after the grid barrier
+constexpr int kFinalCells = 8;
+// value columns a wide-route instance keeps kWideBatches batches of in
+// registers; more columns take the instance of 2 batches of 32 columns
+constexpr int kWideFewCols = 4;
 
+// one cooperative launch (the narrow or the wide route)
 __host__ __device__ __forceinline__ bool direct_route(int n_groups, int cols) {
-  return (int64_t)n_groups * cols <= kDirectFloats;
+  return (int64_t)n_groups * cols <= kWideFloats;
+}
+
+// the direct route's partials past 48 KB of shared memory
+__host__ __device__ __forceinline__ bool wide_route(int n_groups, int cols) {
+  return direct_route(n_groups, cols) &&
+         (int64_t)n_groups * cols > kDirectFloats;
 }
 
 __host__ __device__ __forceinline__ bool counters_in_smem(int n_parts) {
@@ -307,34 +335,36 @@ __device__ __forceinline__ void store_cell(int k, int C, int cols, float v,
     counts[g] = v;
 }
 
-// Direct route: lane j takes row r0 + j of a batch of 32, its id (-1 for
-// padding and past hi) and its C values
+// Direct route: lane j takes row r of a batch of 32, its id (-1 for
+// padding and past hi) and its C <= MC values.  The values load beside
+// the id, not after it: a padding row's are read and never added
+template <int MC>
 __device__ __forceinline__ int32_t load_row(const int32_t* __restrict__ ids,
                                             const float* __restrict__ values,
                                             int64_t ldv, int64_t r,
                                             int64_t hi, int C,
-                                            int n_groups, float (&x)[32]) {
+                                            int n_groups, float (&x)[MC]) {
   int32_t g = r < hi ? ids[r] : -1;
-  if (g >= n_groups) g = -1;
 #pragma unroll
-  for (int c = 0; c < 32; ++c) {
+  for (int c = 0; c < MC; ++c) {
     if (c >= C) break;
-    x[c] = g >= 0 ? values[r * ldv + c] : 0.0f;
+    x[c] = r < hi ? values[r * ldv + c] : 0.0f;
   }
-  return g;
+  return g < n_groups ? g : -1;
 }
 
 // Direct route: add a batch's rows into the warp's partial, each cell's
 // rows in lane (row) order.  A batch of one group reduces over the lanes
 // first, in a fixed butterfly.
+template <int MC>
 __device__ __forceinline__ void add_batch(float* __restrict__ part, int cols,
                                           int C, int with_counts, int lane,
-                                          int32_t g, float (&x)[32]) {
+                                          int32_t g, float (&x)[MC]) {
   const unsigned peers = __match_any_sync(0xffffffffu, g);
   if (peers == 0xffffffffu) {  // the same in every lane
     if (g < 0) return;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
+    for (int c = 0; c < MC; ++c) {
       if (c >= C) break;
       for (int o = 16; o > 0; o >>= 1)
         x[c] += __shfl_xor_sync(0xffffffffu, x[c], o);
@@ -342,7 +372,7 @@ __device__ __forceinline__ void add_batch(float* __restrict__ part, int cols,
     if (lane == 0) {
       float* cell = part + g * cols;
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
+      for (int c = 0; c < MC; ++c) {
         if (c >= C) break;
         cell[c] += x[c];
       }
@@ -359,7 +389,7 @@ __device__ __forceinline__ void add_batch(float* __restrict__ part, int cols,
     if (rank == k && g >= 0) {
       float* cell = part + g * cols;
 #pragma unroll
-      for (int c = 0; c < 32; ++c) {
+      for (int c = 0; c < MC; ++c) {
         if (c >= C) break;
         cell[c] += x[c];
       }
@@ -371,13 +401,17 @@ __device__ __forceinline__ void add_batch(float* __restrict__ part, int cols,
 
 // Direct route: one cooperative launch.  Dynamic shared memory:
 // kDirectWarps partials of n_groups * cols floats.  Pass 1: each warp adds
-// its rows into its partial; the block sums its warps' partials in warp
+// its rows into its partial, kBatches batches of 32 rows loaded at a time
+// (C <= MC value columns); the block sums its warps' partials in warp
 // order into its column of block_part [cells, blocks] (or, as the only
 // block, into the output).  Pass 2, after a grid-wide barrier: one warp per
 // cell sums the cell's row in a fixed order (lane l the blocks l, l + 32,
-// ... in turn, then a butterfly over the lanes).  kDirectMinBlocks blocks
-// fit an SM, so the plan's grid (at most kDirectMaxBlocks) is co-resident.
-__global__ void __launch_bounds__(kDirectWarps * 32, kDirectMinBlocks)
+// ... in turn, then a butterfly over the lanes).  The narrow instance
+// fits kDirectMinBlocks blocks on an SM, so the plan's grid (at most
+// kDirectMaxBlocks) is co-resident; the wide ones take the grid the card
+// holds (gs_wide_blocks), and the cooperative launch refuses any more.
+template <int MC, int kBatches, int kMinBlocks>
+__global__ void __launch_bounds__(kDirectWarps * 32, kMinBlocks)
     gs_direct(const int32_t* __restrict__ ids, const float* __restrict__ values,
               int64_t ldv, int64_t n, int C, int n_groups, int with_counts,
               int64_t rows_per_block, float* __restrict__ block_part,
@@ -393,10 +427,17 @@ __global__ void __launch_bounds__(kDirectWarps * 32, kDirectMinBlocks)
   const int64_t per_warp = rows_per_block / kDirectWarps;
   const int64_t lo = (int64_t)blockIdx.x * rows_per_block + warp * per_warp;
   const int64_t hi = lo + per_warp < n ? lo + per_warp : n;
-  for (int64_t r0 = lo; r0 < hi; r0 += 32) {
-    float x[32];
-    const int32_t g = load_row(ids, values, ldv, r0 + lane, hi, C, n_groups, x);
-    add_batch(part, cols, C, with_counts, lane, g, x);
+  for (int64_t r1 = lo; r1 < hi; r1 += 32 * kBatches) {
+    float x[kBatches][MC];
+    int32_t g[kBatches];
+#pragma unroll
+    for (int u = 0; u < kBatches; ++u)
+      g[u] = load_row<MC>(ids, values, ldv, r1 + 32 * u + lane, hi, C,
+                          n_groups, x[u]);
+#pragma unroll
+    for (int u = 0; u < kBatches; ++u)
+      if (r1 + 32 * u < hi)  // the whole warp
+        add_batch<MC>(part, cols, C, with_counts, lane, g[u], x[u]);
   }
   __syncthreads();
   const bool single = gridDim.x == 1;
@@ -411,24 +452,93 @@ __global__ void __launch_bounds__(kDirectWarps * 32, kDirectMinBlocks)
   if (single) return;
   __threadfence();
   cooperative_groups::this_grid().sync();
+  // kFinalCells cells a warp at a time, so their loads are in flight
+  // together (a small grid leaves each warp many cells)
   const int n_blocks = gridDim.x;
-  for (int k = blockIdx.x * kDirectWarps + warp; k < cells;
-       k += n_blocks * kDirectWarps) {
-    const float* cell = block_part + (int64_t)k * n_blocks;
-    float v = 0.0f;
-    for (int b = lane; b < n_blocks; b += 32) v += cell[b];
-    // every lane ends with the same sum: each step adds the same two values
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) store_cell(k, C, cols, v, sums, lds, counts);
+  const int stride = n_blocks * kDirectWarps;
+  for (int k0 = blockIdx.x * kDirectWarps + warp; k0 < cells;
+       k0 += kFinalCells * stride) {
+    float v[kFinalCells];
+#pragma unroll
+    for (int j = 0; j < kFinalCells; ++j) v[j] = 0.0f;
+    // lane l adds the blocks l, l + 32, ... of each cell in turn
+    for (int b = lane; b < n_blocks; b += 32) {
+#pragma unroll
+      for (int j = 0; j < kFinalCells; ++j) {
+        const int k = k0 + j * stride;
+        if (k < cells) v[j] += block_part[(int64_t)k * n_blocks + b];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kFinalCells; ++j) {
+      const int k = k0 + j * stride;
+      if (k >= cells) break;  // the whole warp
+      // every lane ends with the same sum: each step adds the same two
+      // values
+      for (int o = 16; o > 0; o >>= 1)
+        v[j] += __shfl_xor_sync(0xffffffffu, v[j], o);
+      if (lane == 0) store_cell(k, C, cols, v[j], sums, lds, counts);
+    }
   }
+}
+
+// the direct route's instances: narrow; wide with few columns (several
+// batches in flight); wide with up to 32 columns
+inline const void* narrow_kernel() {
+  return reinterpret_cast<const void*>(gs_direct<32, 1, kDirectMinBlocks>);
+}
+inline const void* wide_kernel(int C) {
+  return C <= kWideFewCols
+             ? reinterpret_cast<const void*>(
+                   gs_direct<kWideFewCols, kWideBatches, 1>)
+             : reinterpret_cast<const void*>(gs_direct<32, 2, 1>);
+}
+
+// Opens the wide instances' shared memory (the most the route uses) on the
+// current device, once a device: the attribute call costs more than a
+// small launch, so it is not made a launch
+inline cudaError_t open_wide_smem() {
+  constexpr int kMaxDevices = 64;
+  static bool opened[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && opened[dev])) return err;
+  const int bytes = kDirectWarps * kWideFloats * (int)sizeof(float);
+  for (const void* fn : {wide_kernel(1), wide_kernel(kWideFewCols + 1)}) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+  }
+  if (dev < kMaxDevices) opened[dev] = true;
+  return cudaSuccess;
+}
+
+// The most wide-route blocks of C value columns and n_groups * cols cells
+// that the current device holds at once: blocks an SM (the occupancy API,
+// at the launch's threads and shared memory) times its SMs.  The plan
+// takes its grid within it, as the cooperative launch needs.
+inline cudaError_t gs_wide_blocks(int C, int cols, int n_groups,
+                                  int* blocks) {
+  const size_t smem = (size_t)kDirectWarps * n_groups * cols * sizeof(float);
+  const void* fn = wide_kernel(C);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = open_wide_smem();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fn, kDirectWarps * 32, smem);
+  *blocks = per_sm * sms;
+  return err;
 }
 
 // rows_per_block and n_slices come from the caller's plan
 // (kernels/_grouped_sum.py), which makes the same route choice.  Workspace
 // (allocated by the caller, sizes from the same plan):
 //   direct route: fws float: block partials[n_groups * cols, n_blocks]
-//                 when n_blocks > 1 (n_blocks <= kDirectMaxBlocks); iws
-//                 unused
+//                 when n_blocks > 1 (narrow: n_blocks <= kDirectMaxBlocks;
+//                 wide: within gs_wide_blocks); iws unused
 //   partitioned:  iws int32: hist[n_blocks * n_parts], base[n_parts + 1],
 //                            perm[n], local_id[n]
 //                 fws float: partials[n_slices * g_pad * cols]
@@ -445,16 +555,23 @@ inline cudaError_t grouped_sum_launch(const int32_t* ids, const float* values,
   int64_t n_blocks = (n + rows_per_block - 1) / rows_per_block;
   if (n_blocks < 1) n_blocks = 1;
   if (direct_route(n_groups, n_cols)) {
-    if (n_blocks > kDirectMaxBlocks) return cudaErrorInvalidValue;
+    const bool wide = wide_route(n_groups, n_cols);
+    if (!wide && n_blocks > kDirectMaxBlocks) return cudaErrorInvalidValue;
     const size_t smem =
         (size_t)kDirectWarps * n_groups * n_cols * sizeof(float);
+    const void* fn = wide ? wide_kernel(C) : narrow_kernel();
+    if (wide) {
+      const cudaError_t err = open_wide_smem();
+      if (err != cudaSuccess) return err;
+    }
     float* block_part = fws;
     void* args[] = {&ids,       &values,      &ldv,
                     &n,         &C,           &n_groups,
                     &with_counts, &rows_per_block, &block_part,
                     &sums,      &lds,         &counts};
-    return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gs_direct),
-                                       dim3((unsigned)n_blocks),
+    // a grid past what the card holds at once is refused
+    // (cudaErrorCooperativeLaunchTooLarge), never run
+    return cudaLaunchCooperativeKernel(fn, dim3((unsigned)n_blocks),
                                        dim3(kDirectWarps * 32), args, smem,
                                        stream);
   }

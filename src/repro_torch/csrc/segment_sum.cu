@@ -24,3 +24,10 @@ extern "C" int repro_segment_sum(const void* seg_ids, const void* values,
       static_cast<float*>(out), ldo, nullptr,
       static_cast<cudaStream_t>(stream));
 }
+
+// The most wide-route blocks the current device holds at once for C value
+// columns and n_groups ids (gs_wide_blocks), into *blocks
+extern "C" int repro_segment_sum_wide_blocks(int C, int with_counts,
+                                             int n_groups, void* blocks) {
+  return (int)gs_wide_blocks(C, C, n_groups, static_cast<int*>(blocks));
+}

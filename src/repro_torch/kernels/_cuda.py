@@ -59,6 +59,10 @@ _SIGNATURES = {
                             _I64, _P, _P),
     "repro_segment_sum": (_P, _P, _I64, _I64, _I, _I, _I64, _I, _P, _P, _P,
                           _I64, _P),
+    #: C, with_counts, n_groups, int* blocks: the wide route's co-resident
+    #: grid on the current device
+    "repro_radix_groupby_wide_blocks": (_I, _I, _I, _P),
+    "repro_segment_sum_wide_blocks": (_I, _I, _I, _P),
     "repro_flash_attention_fp32": _FLASH,
     "repro_flash_attention_bf16": _FLASH,
     "repro_flash_attention_backward_fp32": _FLASH_BWD,
@@ -66,10 +70,9 @@ _SIGNATURES = {
     #: delta, x, B, C, A, h0, y, hT, carries (null: not written), Bt, T, d,
     #: N, bf16, lanes, stream
     "repro_mamba_scan": (_P,) * 9 + (_I,) * 6 + (_P,),
-    #: delta, x, B, C, A, carries, dy, dhT, d delta, dx, dA (per batch row),
-    #: dh0, dB and dC partials (per channel block), dB, dC, dA, Bt, T, d,
-    #: N, bf16, lanes, stream
-    "repro_mamba_scan_backward": (_P,) * 17 + (_I,) * 6 + (_P,),
+    #: delta, x, B, C, A, carries, dy, dhT, d delta, dx, dB, dC, dA, dh0,
+    #: workspace (ops.backward_workspace_floats), Bt, T, d, N, bf16, stream
+    "repro_mamba_scan_backward": (_P,) * 15 + (_I,) * 5 + (_P,),
 }
 
 

@@ -1,25 +1,34 @@
 """Launch plan shared by the radix-groupby and segment-sum kernels, which run
 the same deterministic grouped sum (``csrc/grouped_sum.cuh``).
 
-Two routes, chosen from the shapes alone:
+Three routes, chosen from the shapes alone:
 
 - **direct**, when a warp's partial (``n_groups x cols`` floats, ``cols``
-  the value columns plus the counts column) fits ``DIRECT_FLOATS``: one
+  the value columns plus the counts column) fits ``WIDE_FLOATS``: one
   cooperative launch.  Each block takes a fixed row range; its warps add
   32 rows at a time into per-warp shared partials (rows of one id in row
   order); the block sums its warps in warp order; after a grid-wide
-  barrier the block partials are summed in a fixed order.  The grid never
-  exceeds ``TARGET_BLOCKS``, so every block is resident at once.
+  barrier the block partials are summed in a fixed order.
+  - narrow, partials within ``DIRECT_FLOATS`` (48 KB a block): the grid
+    never exceeds ``TARGET_BLOCKS``, so every block is resident at once.
+  - **wide** (``is_wide``), partials within ``WIDE_FLOATS`` (224 KB a
+    block, Hopper's opt-in shared memory): one block an SM, within the
+    blocks the card holds at once at that shared memory, which the
+    kernel library reports (``wide_blocks``: the occupancy API times the
+    SMs).  The supplier shard (2,000 ids with counts) and its combiner
+    take it.
 - **partitioned**, for larger id spaces: a stable counting sort into
   256-id partitions, then per-partition sums in row order (six launches).
 
-The plan fixes the row ranges and slice counts from ``n``, ``n_groups`` and
-the column count alone, so the order of every float addition depends on the
-input only.  It is cached: the same shapes give the same plan object.
+The plan fixes the row ranges and slice counts from ``n``, ``n_groups``,
+the column count and, on the wide route, the card's co-resident blocks,
+so the order of every float addition depends on the input and the card
+only.  It is cached: the same shapes give the same plan object.
 Bound: bytes, about 0.2 us at the SSB shapes, below one launch's cost, so
 at those shapes the call's host work and its one launch are the time."""
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -30,9 +39,12 @@ from . import _cuda
 PART_GROUPS = 256            # ids per partition (kPartGroups in the .cuh)
 MAX_COLS = 32                # value columns (C); the counts column is extra
 DIRECT_WARPS = 8             # warps a direct-route block (kDirectWarps)
-#: floats of shared memory a direct-route warp may hold: 48 KB over its
-#: block's 8 warps (kDirectFloats)
+#: floats of shared memory a narrow direct-route warp may hold: 48 KB over
+#: its block's 8 warps (kDirectFloats)
 DIRECT_FLOATS = 12288 // DIRECT_WARPS
+#: floats a wide-route warp may hold: 8 warps in 224 KB of the 227 KB of
+#: shared memory a block may opt into (kWideFloats)
+WIDE_FLOATS = 7168
 #: blocks to aim for: two per SM of the H100's 132.  The direct route's
 #: grid never exceeds it (kDirectMaxBlocks), so it is co-resident
 TARGET_BLOCKS = 264
@@ -44,6 +56,7 @@ MAX_HIST = 1 << 20
 
 
 class Plan(NamedTuple):
+    #: one cooperative launch (narrow or wide); else partitioned
     direct: bool
     rows_per_block: int
     n_blocks: int
@@ -53,17 +66,31 @@ class Plan(NamedTuple):
     n_slices: int
     int_words: int
     float_words: int
+    #: the direct route's partials past 48 KB of shared memory
+    wide: bool = False
 
 
 def is_direct(n_groups: int, n_values: int, with_counts: bool) -> bool:
-    """The route test of ``direct_route`` in ``csrc/grouped_sum.cuh``."""
-    return n_groups * (n_values + int(with_counts)) <= DIRECT_FLOATS
+    """One cooperative launch, narrow or wide: the route test of
+    ``direct_route`` in ``csrc/grouped_sum.cuh``."""
+    return n_groups * (n_values + int(with_counts)) <= WIDE_FLOATS
+
+
+def is_wide(n_groups: int, n_values: int, with_counts: bool) -> bool:
+    """The direct route past 48 KB of partials: ``wide_route`` in
+    ``csrc/grouped_sum.cuh``."""
+    return (is_direct(n_groups, n_values, with_counts)
+            and n_groups * (n_values + int(with_counts)) > DIRECT_FLOATS)
 
 
 @functools.lru_cache(maxsize=256)
-def plan(n: int, n_groups: int, n_values: int, with_counts: bool) -> Plan:
+def plan(n: int, n_groups: int, n_values: int, with_counts: bool,
+         wide_blocks: int = 0) -> Plan:
     """Launch shape and workspace for ``n`` rows, ``n_groups`` ids and
-    ``n_values`` value columns, plus a counts column when ``with_counts``."""
+    ``n_values`` value columns, plus a counts column when ``with_counts``.
+    ``wide_blocks``: on the wide route, the blocks the card holds at once
+    (:func:`wide_blocks`), which caps its grid; the other routes ignore
+    it."""
     if n >= 1 << 31:
         raise ValueError(f"grouped sum over {n} rows: row indices are int32")
     if not 0 <= n_values <= MAX_COLS:
@@ -71,15 +98,21 @@ def plan(n: int, n_groups: int, n_values: int, with_counts: bool) -> Plan:
                          f"kernel takes 0 to {MAX_COLS}")
     cols = n_values + int(with_counts)
     if is_direct(n_groups, n_values, with_counts):
+        wide = is_wide(n_groups, n_values, with_counts)
+        if wide and wide_blocks < 1:
+            raise ValueError(f"grouped sum of {n_groups * cols} cells takes "
+                             f"the wide route, whose grid needs the card's "
+                             f"co-resident blocks (wide_blocks)")
+        cap = wide_blocks if wide else TARGET_BLOCKS
         # a warp's rows: whole batches of 32, as few as keep the grid within
-        # TARGET_BLOCKS
-        per_warp = -(-n // (TARGET_BLOCKS * DIRECT_WARPS))
+        # the cap
+        per_warp = -(-n // (cap * DIRECT_WARPS))
         per_warp = max(32, -(-per_warp // 32) * 32)
         rows_per_block = DIRECT_WARPS * per_warp
         n_blocks = max(1, -(-n // rows_per_block))
         partials = n_blocks * n_groups * cols if n_blocks > 1 else 0
         return Plan(True, rows_per_block, n_blocks, 0, 0, 0, int_words=0,
-                    float_words=partials)
+                    float_words=partials, wide=wide)
     n_parts = max(1, -(-n_groups // PART_GROUPS))
     rows_per_block = 1024
     while (-(-n // rows_per_block) * n_parts > MAX_HIST
@@ -97,10 +130,12 @@ def plan(n: int, n_groups: int, n_values: int, with_counts: bool) -> Plan:
 
 
 #: the direct route's scratch, one buffer per (device, stream) holding the
-#: most block partials a plan asks for (1.6 MB).  Launches on one stream
-#: run in order, so each reuses its stream's buffer, as the caching
-#: allocator reuses a block freed on that stream; it saves a host-bound call
-#: an allocation
+#: most block partials a plan has asked for: the narrow route's most
+#: (1.6 MB) at first, grown to the wide route's cells x blocks (at most
+#: about 3.9 MB at 132 SMs) by the first wide plan that needs more.
+#: Launches on one stream run in order, so each reuses its stream's buffer,
+#: as the caching allocator reuses a block freed on that stream (also the
+#: one a growth replaces); it saves a host-bound call an allocation
 _direct_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -115,15 +150,37 @@ def workspace(p: Plan, device: torch.device, stream: int) -> tuple:
             return None, None, None
         key = (device.index, stream)
         buf = _direct_scratch.get(key)
-        if buf is None:
+        if buf is None or buf.numel() < p.float_words:
             buf = _direct_scratch[key] = torch.empty(
-                TARGET_BLOCKS * DIRECT_FLOATS, dtype=torch.float32,
-                device=device)
+                max(p.float_words, TARGET_BLOCKS * DIRECT_FLOATS),
+                dtype=torch.float32, device=device)
         return buf, None, buf.data_ptr()
     buf = torch.empty(p.int_words + p.float_words, dtype=torch.int32,
                       device=device)
     base = buf.data_ptr()
     return buf, base, base + 4 * p.int_words
+
+
+@functools.lru_cache(maxsize=256)
+def wide_blocks(name: str, device: int, n_values: int, with_counts: bool,
+                n_groups: int) -> int:
+    """The wide route's grid for ``csrc/<name>.cu`` on CUDA device
+    ``device``, these columns and ids: one block an SM, within the blocks
+    the card holds at once (the occupancy API at the launch's threads and
+    shared memory, times the SMs; one query a shape and device).  More
+    blocks an SM, where smaller partials allow them, only add block
+    partials and final sums: at the supplier shard three an SM took 0.049
+    ms against one's 0.041 (PERF.md)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(_cuda.library(), f"repro_{name}_wide_blocks")(
+            n_values, int(with_counts), n_groups, ctypes.byref(out))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    _cuda.check(rc, f"{name} wide route")
+    if out.value < 1:
+        raise RuntimeError(f"{name}: no wide-route block of {n_groups} ids "
+                           f"and {n_values} columns fits an SM")
+    return min(out.value, sms)
 
 
 def in_column_batches(batch_sum, ids: torch.Tensor, values: torch.Tensor,
@@ -191,7 +248,9 @@ def _launch_batch(name: str, ids: torch.Tensor, values: torch.Tensor,
               else None)
     if n_groups == 0 or c + with_counts == 0:
         return sums.zero_(), counts
-    p = plan(n, n_groups, c, with_counts)
+    p = plan(n, n_groups, c, with_counts,
+             wide_blocks(name, ids.get_device(), c, with_counts, n_groups)
+             if is_wide(n_groups, c, with_counts) else 0)
     stream = _cuda.stream_ptr(ids)
     ws, iws, fws = workspace(p, ids.device, stream)  # ws: alive to launch
     out = ((sums.data_ptr(), sums.stride(0),

@@ -11,12 +11,14 @@ Gradients.  The reference has no backward kernel: its trainer takes
 ``jax.grad`` of the plain chunked scan, whose gradient is the target.
 Here a CUDA tensor that needs a gradient goes through
 ``MambaScanFunction``: the forward kernel also writes the state at every
-``carry_steps(N)``-th step, and the backward is the kernel
-``csrc/mamba_scan_bwd.cu`` (``mamba_scan_backward_cuda``), which walks the
-chunks last to first, rebuilds each chunk's states from its carry and
-sums every gradient in a fixed order.  The plain versions
-(``mamba_scan_ref``, ``mamba_scan_backward_ref``) are the oracles: on the
-card only the tests and ``chip_smoke.py`` call them.
+``carry_steps(N)``-th step, and the backward is the kernels of
+``csrc/mamba_scan_bwd.cu`` (``mamba_scan_backward_cuda``), which cut T
+into time chunks of ``TIME_CHUNK`` steps: each chunk's gradient at its
+start from a zero one at its end, the chunks' ends chained last to first,
+then every chunk's walk from its own end in parallel (rebuilding its
+states from the carries), every gradient summed in a fixed order.  The
+plain versions (``mamba_scan_ref``, ``mamba_scan_backward_ref``) are the
+oracles: on the card only the tests and ``chip_smoke.py`` call them.
 
 Both directions are ops (``torch.ops.repro_torch.mamba_scan``,
 ``mamba_scan_with_carries``, ``mamba_scan_backward``): on the card their
@@ -45,8 +47,12 @@ LANES = (1, 2, 4)
 #: falcon-mamba-7b's width, 1 lane was fastest from Bt 4 (32,768 channels)
 #: up, 2 at Bt 2 and 4 at Bt 1 (PERF.md)
 FILL_CHANNELS = 32768
-#: channels a block of either kernel scans (its grid: (d / 64, Bt))
+#: channels a block of either kernel scans (its grid: (d / 64, Bt), the
+#: backward's (d / 64, time chunks, Bt))
 BLOCK_CHANNELS = 64
+#: steps a time chunk of the backward (kTimeChunk): a whole number of carry
+#: intervals for every state bucket
+TIME_CHUNK = 128
 
 
 def default_lanes(Bt: int, d: int) -> int:
@@ -182,15 +188,27 @@ def mamba_scan_cuda(delta: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
     return (y, hT, saved) if carries else (y, hT)
 
 
+def backward_workspace_floats(Bt: int, T: int, d: int, N: int) -> int:
+    """fp32 words of the backward kernels' workspace: u (then each time
+    chunk's end gradient), the decays and the dA partials, each
+    [Bt, time chunks, d, N]; the dB and dC partials of each 64-channel
+    block, each [Bt, d / 64, T, N] (summed in a fixed order by the last
+    launch)."""
+    chunks = -(-T // TIME_CHUNK)
+    blocks = -(-d // BLOCK_CHANNELS)
+    return 3 * Bt * chunks * d * N + 2 * Bt * blocks * T * N
+
+
 def mamba_scan_backward_cuda(delta, x, B, C, A, h0, carries, grad_y,
-                             grad_hT, lanes: Optional[int] = None):
+                             grad_hT):
     """Launch ``csrc/mamba_scan_bwd.cu``: the six inputs' gradients (delta
     and x in their dtype, bf16 ones rounded from fp32; B, C, A, h0 fp32)
     from the forward's ``carries`` (as ``mamba_scan_cuda(...,
-    carries=True)`` gives them) and the gradients of y and hT, all
-    contiguous CUDA tensors.  ``lanes`` as the forward's."""
-    Bt, T, d, N, lanes = _check_inputs("mamba_scan_backward", delta, x, B,
-                                       C, A, h0, lanes)
+    carries=True)`` gives them, under any lane split) and the gradients of
+    y and hT, all contiguous CUDA tensors.  Its own split of a channel's
+    states is 4 lanes."""
+    Bt, T, d, N, _ = _check_inputs("mamba_scan_backward", delta, x, B, C, A,
+                                   h0, LANES[-1])
     f32, dev = torch.float32, delta.device
     _check_shapes("mamba_scan_backward", dev,
                   carries=(carries, (Bt, _n_carries(T, N), d, N), f32),
@@ -201,22 +219,17 @@ def mamba_scan_backward_cuda(delta, x, B, C, A, h0, carries, grad_y,
     dA, dh0 = torch.empty_like(A), torch.empty_like(h0)
     if Bt * d == 0:
         return ddelta, dx, dB.zero_(), dC.zero_(), dA.zero_(), dh0
-    # per-block partials, summed in block order by the second pass: dB and
-    # dC of each 64-channel block, dA of each batch row
-    blocks = -(-d // BLOCK_CHANNELS)
-    part_B = torch.empty((Bt, blocks, T, N), dtype=f32, device=dev)
-    part_C = torch.empty_like(part_B)
-    part_A = torch.empty((Bt, d, N), dtype=f32, device=dev)
     lib = _cuda.library()
+    ws = torch.empty(backward_workspace_floats(Bt, T, d, N), dtype=f32,
+                     device=dev)
     with _cuda.device_guard(dB):
         _cuda.count_launch("mamba_scan_backward")
         rc = lib.repro_mamba_scan_backward(
             delta.data_ptr(), x.data_ptr(), B.data_ptr(), C.data_ptr(),
             A.data_ptr(), carries.data_ptr(), grad_y.data_ptr(),
             grad_hT.data_ptr(), ddelta.data_ptr(), dx.data_ptr(),
-            part_A.data_ptr(), dh0.data_ptr(), part_B.data_ptr(),
-            part_C.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
-            Bt, T, d, N, int(delta.dtype == torch.bfloat16), lanes,
+            dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), dh0.data_ptr(),
+            ws.data_ptr(), Bt, T, d, N, int(delta.dtype == torch.bfloat16),
             _cuda.stream_ptr(dB))
     _cuda.check(rc, "mamba_scan_backward")
     return ddelta, dx, dB, dC, dA, dh0

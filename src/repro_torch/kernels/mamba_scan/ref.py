@@ -1,6 +1,6 @@
 """Plain torch versions of the selective scan: ``mamba_scan_ref``, a loop
 over time steps (the oracle the kernel is held against),
-``mamba_scan_backward_ref``, its gradient by the backward kernel's
+``mamba_scan_backward_ref``, its gradient by the backward kernels'
 reverse-time walk, and ``mamba_scan_chunked``, the reference model's
 two-level chunked scan, which the model's plain route runs."""
 from __future__ import annotations
@@ -62,7 +62,8 @@ def mamba_scan_backward_ref(delta: torch.Tensor, x: torch.Tensor,
                             B: torch.Tensor, C: torch.Tensor,
                             A: torch.Tensor, h0: torch.Tensor,
                             carries: torch.Tensor, dy: torch.Tensor,
-                            dhT: torch.Tensor, chunk: Optional[int] = None
+                            dhT: torch.Tensor, chunk: Optional[int] = None,
+                            time_chunk: Optional[int] = None
                             ) -> Tuple[torch.Tensor, ...]:
     """Gradients (d delta, dx, dB, dC, dA, dh0) of ``mamba_scan_ref``'s
     (y, hT) from their gradients ``dy`` [Bt, T, d] and ``dhT`` [Bt, d, N],
@@ -78,20 +79,73 @@ def mamba_scan_backward_ref(delta: torch.Tensor, x: torch.Tensor,
         dA += g delta_t a_t h_{t-1};  g = a_t g
 
     and dh0 = g at the end; dA, summed over time per batch row, is summed
-    over the rows last.  The four contractions are einsums, so
-    ``FlopCounterMode`` counts what the kernel contracts: 2 Bt d N each a
-    step (the rest is elementwise, which it does not count).  fp32; each
-    gradient comes back in its input's dtype (bf16 delta and x: their fp32
-    gradients rounded)."""
+    over the rows last.
+
+    ``time_chunk`` (a multiple of ``chunk``): the kernels' time-parallel
+    decomposition instead of one walk.  g is linear in the gradient at a
+    time chunk's end, g_start = u + P g_end, so (1) each time chunk's sweep
+    back from g = 0 gives u and the decay P = prod a_t, (2) the chunks'
+    ends chain last to first from dhT, g_end(k) = u(k + 1) + P(k + 1)
+    g_end(k + 1), and dh0 comes out there, (3) each time chunk walks as
+    above from its own g_end; dA is summed over (batch row, time chunk).
+
+    The four contractions are einsums, so ``FlopCounterMode`` counts what
+    the kernel contracts: 2 Bt d N each a step (the rest is elementwise,
+    which it does not count).  fp32; each gradient comes back in its
+    input's dtype (bf16 delta and x: their fp32 gradients rounded)."""
     dts = [t.dtype for t in (delta, x, B, C, A, h0)]
     delta, x, B, C, A, dy, g = (t.float() for t in (delta, x, B, C, A, dy,
                                                     dhT))
-    Bt, T, d = delta.shape
+    T = delta.shape[1]
     ch = chunk or carry_steps(B.shape[-1])
-    ddelta, dx = torch.empty_like(delta), torch.empty_like(x)
-    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    grads = (torch.empty_like(delta), torch.empty_like(x),
+             torch.empty_like(B), torch.empty_like(C))
+    walk = (delta, x, B, C, A, carries, dy, ch, grads)
+    n_carries = carries.shape[1]
+    if time_chunk is None:
+        g, dA = _walk(*walk, range(n_carries), g)
+        dA = dA.sum(0)
+    else:
+        if time_chunk % ch:
+            raise ValueError(f"time chunk {time_chunk} is not a whole "
+                             f"number of carry intervals of {ch}")
+        bounds = [(t0, min(T, t0 + time_chunk))
+                  for t0 in range(0, T, time_chunk)]
+        # 1. each time chunk's sweep from g = 0: u and the decay P
+        sweeps = []
+        for t0, t1 in bounds:
+            u, p = torch.zeros_like(g), torch.ones_like(g)
+            for t in reversed(range(t0, t1)):
+                a = torch.exp(delta[:, t, :, None] * A)
+                u = a * (u + C[:, t, None, :] * dy[:, t, :, None])
+                p = p * a
+            sweeps.append((u, p))
+        # 2. the chunks' ends, last to first from dhT
+        ends = [g] * len(bounds)
+        for k in reversed(range(len(bounds))):
+            ends[k] = g
+            u, p = sweeps[k]
+            g = u + p * g
+        # 3. each time chunk's walk from its own end
+        per = time_chunk // ch
+        dA = torch.zeros_like(g[0])
+        parts = [_walk(*walk, range(k * per, min(n_carries, (k + 1) * per)),
+                       ends[k])[1] for k in range(len(bounds))]
+        for b in range(g.shape[0]):
+            for part in parts:
+                dA = dA + part[b]
+    return tuple(t.to(dt) for t, dt in zip(grads + (dA, g), dts))
+
+
+def _walk(delta, x, B, C, A, carries, dy, ch, grads, intervals, g):
+    """The walk back through carry ``intervals`` (last to first) from g,
+    the gradient of the state after the last one's last step, writing
+    d delta, dx, dB and dC of their steps into ``grads``.  Returns g before
+    the first one and dA [Bt, d, N] over their steps, per batch row."""
+    ddelta, dx, dB, dC = grads
+    T = delta.shape[1]
     dA = torch.zeros_like(g)
-    for k in reversed(range(carries.shape[1])):
+    for k in reversed(intervals):
         t0, t1 = k * ch, min(T, (k + 1) * ch)
         h = carries[:, k].float()
         states = []
@@ -112,8 +166,7 @@ def mamba_scan_backward_ref(delta: torch.Tensor, x: torch.Tensor,
             dB[:, t] = torch.einsum("bdn,bd->bn", g, d_t * x_t)
             dA = dA + g * ah * d_t[:, :, None]
             h, g = h_prev, a * g
-    return tuple(t.to(dt) for t, dt in zip(
-        (ddelta, dx, dB, dC, dA.sum(0), g), dts))
+    return g, dA
 
 
 def ssm_chunk_scan(h0: torch.Tensor, dA: torch.Tensor, dBx: torch.Tensor,

@@ -3,9 +3,10 @@ an H100 and ``nvcc``:
 
     python3 tests/_planted_faults.py
 
-Copies ``src/`` and ``chip_smoke.py`` into a temporary directory, plants
-three faults in the copy's CUDA sources, builds the copy and holds its
-gradients against the plain versions with ``chip_smoke.py``'s checks:
+Copies ``src/`` and ``chip_smoke.py`` into two temporary directories,
+plants faults in each copy's CUDA sources (three in the first, one in the
+second), builds each copy and holds its gradients against the plain
+versions with ``chip_smoke.py``'s checks:
 
 - ``flash_attention_bwd.cu``: the bf16 wgmma dK/dV kernel (producer and
   consumers alike) skips the last query tile it would visit for every
@@ -14,11 +15,15 @@ gradients against the plain versions with ``chip_smoke.py``'s checks:
   each of dK and dV must fail ``FLASH_BWD_REL_BF16`` (the relative norm
   over 64-row tiles); whether ``FLASH_TOL_BF16`` alone catches it is
   printed beside;
-- ``mamba_scan_bwd.cu``: the walk drops chunk 1's terms of dA, and the
-  reduction drops channel block 1's partials of dB and dC; at
+- ``mamba_scan_bwd.cu``: the walk drops carry interval 1's terms of dA,
+  and the reduction drops channel block 1's partials of dB and dC; at
   falcon-mamba-7b's training shape (Bt 1, T 2048, d 8192, N 16), in bf16
   and fp32 delta/x, each of dA, dB, dC must fail ``SCAN_TOL`` with its
-  atol times the gradient's largest value.
+  atol times the gradient's largest value;
+- second copy, ``mamba_scan_bwd.cu``: the cross-chunk pass skips time
+  chunk 1's decay (chunk 0's walk starts from u(1) alone); at the same
+  shape each of dA, dB (atol times the largest value) and dx must fail
+  ``SCAN_TOL``.
 
 Prints a line a gradient (its gap against the limit) and exits 1 if any
 planted fault passes the check meant to catch it.  The repo's own tree
@@ -32,20 +37,29 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-FAULTS = {
-    "flash_attention_bwd.cu": [(
+#: the faults of each copy, and the scan gradients (index into the six,
+#: name) each copy's scan check must see fail
+COPIES = [
+    ({"flash_attention_bwd.cu": [(
         "const int steps = G * n_qt;",
         "const int steps = G * n_qt - (n_qt > 1 && k0 >= Skv / 2 ? 1 : 0);")],
-    "mamba_scan_bwd.cu": [
-        ("dA[s] = __fmaf_rn(gs, __fmul_rn(dt, ah), dA[s]);",
-         "if (k != 1) dA[s] = __fmaf_rn(gs, __fmul_rn(dt, ah), dA[s]);"),
-        ("acc = __fadd_rn(acc, src[blk * tn]);",
-         "if (blk != 1) acc = __fadd_rn(acc, src[blk * tn]);")],
-}
+      "mamba_scan_bwd.cu": [
+          ("dA[s] = __fmaf_rn(gh, dt, dA[s]);",
+           "if (k != 1) dA[s] = __fmaf_rn(gh, dt, dA[s]);"),
+          ("acc = __fadd_rn(acc, src[blk * tn]);",
+           "if (blk != 1) acc = __fadd_rn(acc, src[blk * tn]);")]},
+     ((2, "B"), (3, "C"), (4, "A"))),
+    ({"mamba_scan_bwd.cu": [
+        ("g = __fmaf_rn(p[j], g, u[j]);",
+         "g = k != 1 ? __fmaf_rn(p[j], g, u[j]) : u[j];")]},
+     ((4, "A"), (2, "B"), (1, "x"))),
+]
+#: gradients whose atol scales with their largest value (long sums)
+LONG_SUMS = ("A", "B", "C")
 
 
-def plant(copy: Path) -> None:
-    for name, edits in FAULTS.items():
+def plant(copy: Path, faults: dict) -> None:
+    for name, edits in faults.items():
         path = copy / "src" / "repro_torch" / "csrc" / name
         text = path.read_text()
         for old, new in edits:
@@ -56,8 +70,8 @@ def plant(copy: Path) -> None:
         path.write_text(text)
 
 
-def check_copy() -> int:
-    """Run inside the planted copy (its ``src`` first on the path)."""
+def check_copy(which: int) -> int:
+    """Run inside planted copy ``which`` (its ``src`` first on the path)."""
     import torch
 
     import chip_smoke as c
@@ -72,7 +86,10 @@ def check_copy() -> int:
     gen.manual_seed(0)
     missed = []
     bf16 = torch.bfloat16
-    for B, S, Kh, G, hd in ((2, 2048, 32, 1, 80), (2, 257, 2, 2, 128)):
+    faults, scan_grads = COPIES[which]
+    flash = ((2, 2048, 32, 1, 80), (2, 257, 2, 2, 128)) \
+        if "flash_attention_bwd.cu" in faults else ()
+    for B, S, Kh, G, hd in flash:
         def rand(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(bf16)
         q, k, v = rand(B, S, Kh, G, hd), rand(B, S, Kh, hd), rand(B, S, Kh,
@@ -102,14 +119,16 @@ def check_copy() -> int:
         wide = [t.float() for t in args[:2]] + list(args[2:])
         got = mamba_scan_backward_cuda(*wide, carries, dy, dhT)
         want = mamba_scan_backward_ref(*wide, carries, dy, dhT)
-        for i, n in ((2, "B"), (3, "C"), (4, "A")):
+        for i, n in scan_grads:
             a, w = got[i], want[i]
             rtol, atol = c.SCAN_TOL
             top = float(w.abs().max())
-            caught = not torch.allclose(a, w, rtol=rtol, atol=atol * top)
+            scale = top if n in LONG_SUMS else 1.0
+            caught = not torch.allclose(a, w, rtol=rtol, atol=atol * scale)
             print(f"scan {str(dtype).split('.')[-1]} d{n}: max gap / max "
                   f"value {float((a - w).abs().max()) / top:.4g} (atol "
-                  f"{atol} x max); {'fails' if caught else 'PASSES'}")
+                  f"{atol}{' x max' if n in LONG_SUMS else ''}); "
+                  f"{'fails' if caught else 'PASSES'}")
             if not caught:
                 missed.append(f"scan {dtype} d{n}")
     if missed:
@@ -120,18 +139,26 @@ def check_copy() -> int:
 
 
 def main() -> int:
-    with tempfile.TemporaryDirectory() as tmp:
-        copy = Path(tmp)
-        shutil.copytree(ROOT / "src", copy / "src",
-                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        shutil.copy2(ROOT / "chip_smoke.py", copy)
-        shutil.copy2(__file__, copy / "planted_faults.py")
-        plant(copy)
-        env = dict(os.environ, PYTHONPATH=str(copy / "src"))
-        return subprocess.run(
-            [sys.executable, "planted_faults.py", "--in-copy"], cwd=copy,
-            env=env).returncode
+    rc = 0
+    for which, (faults, _) in enumerate(COPIES):
+        with tempfile.TemporaryDirectory() as tmp:
+            copy = Path(tmp)
+            shutil.copytree(ROOT / "src", copy / "src",
+                            ignore=shutil.ignore_patterns("_build",
+                                                          "__pycache__"))
+            shutil.copy2(ROOT / "chip_smoke.py", copy)
+            shutil.copy2(__file__, copy / "planted_faults.py")
+            plant(copy, faults)
+            env = dict(os.environ, PYTHONPATH=str(copy / "src"))
+            print(f"copy {which + 1}: " + "; ".join(
+                f"{name}: {len(edits)} fault(s)"
+                for name, edits in faults.items()), flush=True)
+            rc |= subprocess.run(
+                [sys.executable, "planted_faults.py", "--in-copy",
+                 str(which)], cwd=copy, env=env).returncode
+    return rc
 
 
 if __name__ == "__main__":
-    sys.exit(check_copy() if "--in-copy" in sys.argv else main())
+    sys.exit(check_copy(int(sys.argv[2])) if "--in-copy" in sys.argv
+             else main())

@@ -199,22 +199,32 @@ def test_segment_sum_kernel_matches_plain(dev, n, c, g):
     assert _same(out, segment_sum(ids, vals, g))
 
 
-# Both routes of the grouped sums (kernels/_grouped_sum.py): at the direct
-# route's limit and one group above it, C = 0 and C = 32, all rows padding
+# The routes of the grouped sums (kernels/_grouped_sum.py): at the narrow
+# direct route's limit and one group above it (the wide route), at the wide
+# route's limit and one group above it (partitioned), the hash-mode
+# supplier flow's shard and combiner, C = 0 and C = 32, all rows padding
 # (ids -1 and >= n_groups), and fewer rows than one block's range.  Integer
 # values: byte-identical to the plain version; fractional values: a second
 # launch bit-identical to the first.
 @pytest.mark.parametrize("op,n,c,g,pad,direct", [
-    ("groupby", 5_000, 1, 768, 0.1, True),        # at the limit
-    ("groupby", 5_000, 1, 769, 0.1, False),       # one group above
+    ("groupby", 5_000, 1, 768, 0.1, True),        # at the narrow limit
+    ("groupby", 5_000, 1, 769, 0.1, True),        # one above: wide
     ("segsum", 5_000, 1, 1_536, 0.1, True),
-    ("segsum", 5_000, 1, 1_537, 0.1, False),
+    ("segsum", 5_000, 1, 1_537, 0.1, True),
     ("groupby", 20_000, 0, 1_536, 0.1, True),     # counts only
-    ("groupby", 20_000, 0, 1_537, 0.1, False),
+    ("groupby", 20_000, 0, 1_537, 0.1, True),
     ("groupby", 30_000, 32, 46, 0.1, True),       # 32 columns + counts
-    ("groupby", 30_000, 32, 47, 0.1, False),
+    ("groupby", 30_000, 32, 47, 0.1, True),
     ("segsum", 30_000, 32, 48, 0.1, True),
-    ("segsum", 30_000, 32, 49, 0.1, False),
+    ("segsum", 30_000, 32, 49, 0.1, True),
+    ("groupby", 400_000, 1, 3_584, 0.1, True),    # at the wide limit
+    ("groupby", 400_000, 1, 3_585, 0.1, False),   # one above: partitioned
+    ("segsum", 400_000, 1, 7_168, 0.1, True),
+    ("segsum", 400_000, 1, 7_169, 0.1, False),
+    ("groupby", 60_000, 32, 217, 0.1, True),      # 32 columns, wide limit
+    ("groupby", 60_000, 32, 218, 0.1, False),
+    ("groupby", 1_500_000, 1, 2_000, 0.0, True),  # supplier shard
+    ("segsum", 2_000, 1, 2_000, 0.0, True),       # supplier combiner
     ("groupby", 96_000, 1, 147, 1.0, True),       # all rows padding
     ("segsum", 112_000, 1, 1, 1.0, True),
     ("groupby", 70_000, 2, 5_000, 1.0, False),
@@ -224,8 +234,15 @@ def test_segment_sum_kernel_matches_plain(dev, n, c, g):
 ])
 def test_grouped_sum_routes_match_plain(dev, op, n, c, g, pad, direct):
     from repro_torch.kernels import _grouped_sum as gs
-    p = gs.plan(n, g, c, op == "groupby")
-    assert p.direct == direct
+    name = "radix_groupby" if op == "groupby" else "segment_sum"
+    counts = op == "groupby"
+    wide = gs.is_wide(g, c, counts)
+    cap = (gs.wide_blocks(name, dev.index or 0, c, counts, g) if wide
+           else 0)
+    p = gs.plan(n, g, c, counts, cap)
+    assert p.direct == direct and p.wide == wide
+    if wide:
+        assert p.n_blocks <= cap
     ids = RNG.integers(0, g, n).astype(np.int32)
     drop = RNG.random(n) < pad
     ids[drop] = np.where(RNG.random(int(drop.sum())) < 0.5, -1,
@@ -236,7 +253,6 @@ def test_grouped_sum_routes_match_plain(dev, op, n, c, g, pad, direct):
     frac = torch.from_numpy(RNG.random((n, c)).astype(np.float32)).to(dev)
     kernel, plain = ((radix_groupby, radix_groupby_ref) if op == "groupby"
                      else (segment_sum, segment_sum_ref))
-    name = "radix_groupby" if op == "groupby" else "segment_sum"
 
     def run(vals):
         out = kernel(ids, vals, g)
@@ -1012,12 +1028,19 @@ def test_flash_backward_wgmma_reruns_are_bit_identical(dev, hd, G, window):
     (2, 100, 48, 16, 1), (2, 100, 48, 16, 2), (1, 77, 130, 16, 4),
     (2, 45, 64, 4, 1), (1, 70, 96, 4, 4), (2, 33, 40, 32, 1),
     (1, 61, 64, 32, 2), (1, 29, 72, 32, 4), (2, 70, 131, 5, 2),
-    (1, 64, 64, 8, 4)])
+    (1, 64, 64, 8, 4),
+    # several of the backward's 128-step time chunks, the last ragged
+    (2, 300, 72, 16, 4), (1, 400, 64, 4, 1), (1, 273, 40, 32, 2),
+    (2, 256, 64, 8, 1)])
 def test_scan_backward_kernel_matches_plain(dev, Bt, T, d, N, lanes, dtype):
+    """The backward kernels on the forward kernel's carries (under each
+    lane split; the backward's own split is 4 lanes) against the plain
+    walk and against the plain time-chunk decomposition."""
     from repro_torch.kernels.mamba_scan import (carry_steps,
                                                 mamba_scan_backward_ref,
                                                 mamba_scan_ref)
-    from repro_torch.kernels.mamba_scan.ops import (mamba_scan_backward_cuda,
+    from repro_torch.kernels.mamba_scan.ops import (TIME_CHUNK,
+                                                    mamba_scan_backward_cuda,
                                                     mamba_scan_cuda)
     args = _scan_args(dev, Bt, T, d, N, dtype)
     dy = torch.from_numpy(RNG.normal(size=(Bt, T, d))).to(dev, torch.float32)
@@ -1030,19 +1053,23 @@ def test_scan_backward_kernel_matches_plain(dev, Bt, T, d, N, lanes, dtype):
     assert carries.shape == (Bt, -(-T // carry_steps(N)), d, N)
     torch.testing.assert_close(carries, carries_ref, rtol=1e-4, atol=1e-4)
     reset_launches()
-    got = mamba_scan_backward_cuda(*args, carries, dy, dhT, lanes=lanes)
-    again = mamba_scan_backward_cuda(*args, carries, dy, dhT, lanes=lanes)
+    got = mamba_scan_backward_cuda(*args, carries, dy, dhT)
+    again = mamba_scan_backward_cuda(*args, carries, dy, dhT)
     assert launch_counts()["mamba_scan_backward"] == 2
     for name, a, b in zip(("delta", "x", "B", "C", "A", "h0"), got, again):
         assert _same(a, b), name
     wide = [t.float() for t in args[:2]] + args[2:]
-    fp32 = mamba_scan_backward_cuda(*wide, carries, dy, dhT, lanes=lanes)
+    fp32 = mamba_scan_backward_cuda(*wide, carries, dy, dhT)
     want = mamba_scan_backward_ref(*wide, carries, dy, dhT)
+    chunked = mamba_scan_backward_ref(*wide, carries, dy, dhT,
+                                      time_chunk=TIME_CHUNK)
     for i, name in enumerate(("delta", "x", "B", "C", "A", "h0")):
         assert got[i].dtype == args[i].dtype, name
         assert _same(got[i], fp32[i].to(args[i].dtype)), name
         atol = 1e-4 * (float(want[i].abs().max()) if name == "A" else 1.0)
         torch.testing.assert_close(fp32[i], want[i], rtol=1e-4, atol=atol)
+        torch.testing.assert_close(fp32[i], chunked[i], rtol=1e-4,
+                                   atol=atol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -228,8 +228,8 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
 
 
 def test_grouped_sum_plan_sizes():
-    """The launch plan the CUDA kernels follow.  Direct route (small id
-    space, one launch): the row range a block takes is fixed by n alone,
+    """The launch plan the CUDA kernels follow.  Narrow direct route (small
+    id space, one launch): the row range a block takes is fixed by n alone,
     and the grid never exceeds two blocks per SM of 132, so it is
     co-resident.  Partitioned route (large id space): an int32 region of
     histogram + partition starts + two row arrays and a float region of
@@ -259,18 +259,20 @@ def test_grouped_sum_plan_sizes():
         assert p.n_blocks <= gs.TARGET_BLOCKS
         assert p.n_blocks * p.rows_per_block >= n
         assert p.float_words <= gs.TARGET_BLOCKS * gs.DIRECT_FLOATS
-    # the route boundary, on both sides: a warp's partial of groups x cols
-    # in 1536 floats
-    for g, c, counts, direct in ((768, 1, True, True), (769, 1, True, False),
+    # the narrow route's boundary, on both sides: a warp's partial of
+    # groups x cols in 1536 floats; above it the wide route (still one
+    # launch, direct) takes the card's co-resident grid
+    for g, c, counts, direct in ((768, 1, True, True), (769, 1, True, True),
                                  (1_536, 1, False, True),
-                                 (1_537, 1, False, False),
+                                 (1_537, 1, False, True),
                                  (1_536, 0, True, True),
-                                 (1_537, 0, True, False),
-                                 (46, 32, True, True), (47, 32, True, False),
+                                 (1_537, 0, True, True),
+                                 (46, 32, True, True), (47, 32, True, True),
                                  (48, 32, False, True),
-                                 (49, 32, False, False)):
-        p = gs.plan(5_000, g, c, counts)
+                                 (49, 32, False, True)):
+        p = gs.plan(5_000, g, c, counts, 132)
         assert gs.is_direct(g, c, counts) == p.direct == direct
+        assert p.wide == (g * (c + counts) > gs.DIRECT_FLOATS)
     # partitioned: many partitions, 2^20 cells
     big = gs.plan(4 << 20, 1 << 20, 1, True)
     assert not big.direct and big.n_parts == 4096 and big.n_slices == 1
@@ -285,12 +287,93 @@ def test_grouped_sum_plan_sizes():
     huge = gs.plan(1_000, (1 << 31) - 1, 1, False)
     assert huge.n_blocks == 1 and huge.rows_per_block >= 1_000
     # slices fill the card where partitions are few, not past the rows
-    assert gs.plan(1 << 20, 4096, 1, False).n_slices == 17
+    assert gs.plan(1 << 20, 8192, 1, False).n_slices == 9
     assert gs.plan(4_000_000, 300, 32, True).n_slices == 132
     assert gs.plan(10, 5_000, 2, True).n_slices == 1
     assert gs.plan(10, 4, gs.MAX_COLS, True).direct
     with pytest.raises(ValueError, match="value columns"):
         gs.plan(10, 4, gs.MAX_COLS + 1, False)
+
+
+# Both sides of each route boundary: the narrow direct route (a warp's
+# partial of groups x cols within 1,536 floats), the wide one (within 7,168,
+# Hopper's opt-in shared memory) and the partitioned one, for counts and
+# without, one column, 32 columns and none.
+@pytest.mark.parametrize("g,c,counts,route", [
+    (768, 1, True, "narrow"), (769, 1, True, "wide"),
+    (1_536, 1, False, "narrow"), (1_537, 1, False, "wide"),
+    (3_584, 1, True, "wide"), (3_585, 1, True, "partitioned"),
+    (7_168, 1, False, "wide"), (7_169, 1, False, "partitioned"),
+    (46, 32, True, "narrow"), (47, 32, True, "wide"),
+    (217, 32, True, "wide"), (218, 32, True, "partitioned"),
+    (7_168, 0, True, "wide"), (7_169, 0, True, "partitioned"),
+])
+@pytest.mark.parametrize("n", [100, 1_500_000])
+def test_grouped_sum_three_routes(g, c, counts, route, n):
+    """The route follows the cells alone, identically in ``is_direct`` /
+    ``is_wide`` and the plan; a wide plan needs the card's co-resident
+    blocks and keeps its grid within them (the narrow one within
+    TARGET_BLOCKS, the partitioned one ignores the cap)."""
+    from repro_torch.kernels import _grouped_sum as gs
+    assert gs.is_direct(g, c, counts) == (route != "partitioned")
+    assert gs.is_wide(g, c, counts) == (route == "wide")
+    cap = 132
+    p = gs.plan(n, g, c, counts, cap)
+    assert (p.direct, p.wide) == (route != "partitioned", route == "wide")
+    if route == "partitioned":
+        assert p == gs.plan(n, g, c, counts)         # no cap needed
+        assert p.n_parts == -(-g // gs.PART_GROUPS)
+        return
+    assert p.n_blocks <= (cap if p.wide else gs.TARGET_BLOCKS)
+    assert p.n_blocks * p.rows_per_block >= n
+    assert p.rows_per_block % (32 * gs.DIRECT_WARPS) == 0
+    cells = g * (c + counts)
+    assert p.float_words == (p.n_blocks * cells if p.n_blocks > 1 else 0)
+    if p.wide:
+        with pytest.raises(ValueError, match="co-resident"):
+            gs.plan(n, g, c, counts)
+
+
+@pytest.mark.parametrize("label,n,g,counts,cap", [
+    # 4,000 cells of 8 warps: 128 KB, one block an SM of 132
+    ("supplier shard", 1_500_000, 2_000, True, 132),
+    # 2,000 cells: 64 KB (the card holds three an SM; the grid takes one)
+    ("supplier combiner", 2_000, 2_000, False, 132),
+    # a grid capped below the SMs (a card holding fewer blocks at once)
+    ("capped", 1_500_000, 2_000, True, 40),
+    # the largest wide partial, one block an SM
+    ("widest", 4_000_000, 7_168, False, 132),
+])
+def test_grouped_sum_wide_plans_and_scratch(label, n, g, counts, cap):
+    """The hash-mode supplier flow's grouped sums take the wide route: one
+    launch on a grid within the co-resident cap, 8 warps a block, whole
+    32-row batches a warp; the stream's block-partials scratch grows to the
+    wide plan's cells x blocks and is reused by every smaller plan."""
+    from repro_torch.kernels import _grouped_sum as gs
+    p = gs.plan(n, g, 1, counts, cap)
+    assert p.direct and p.wide and p.int_words == 0
+    assert 1 <= p.n_blocks <= cap
+    per_warp = p.rows_per_block // gs.DIRECT_WARPS
+    assert per_warp % 32 == 0
+    assert per_warp == max(32, -(-(-(-n // (cap * gs.DIRECT_WARPS))) // 32)
+                           * 32)
+    cells = g * (1 + counts)
+    assert p.float_words == (p.n_blocks * cells if p.n_blocks > 1 else 0)
+    gs._direct_scratch.clear()
+    cpu = torch.device("cpu")
+    narrow = gs.plan(96_000, 147, 1, True)           # SSB Q4.1
+    buf, iws, _ = gs.workspace(narrow, cpu, 0)
+    assert iws is None
+    assert buf.numel() == gs.TARGET_BLOCKS * gs.DIRECT_FLOATS
+    if p.float_words:
+        grown, _, fws = gs.workspace(p, cpu, 0)
+        assert grown.numel() == max(p.float_words, buf.numel())
+        assert fws == grown.data_ptr()
+        assert gs.workspace(narrow, cpu, 0)[0] is grown   # reused
+        assert gs.workspace(p, cpu, 1)[0] is not grown    # per stream
+    else:
+        assert gs.workspace(p, cpu, 0) == (None, None, None)
+    gs._direct_scratch.clear()
 
 
 # ------------------------------------------------- the column-batching loop

@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention.ref import LOG2E
 from repro_torch.kernels.mamba_scan import (MambaScanFunction, carry_steps,
                                             mamba_scan_backward_ref,
                                             mamba_scan_ref)
+from repro_torch.kernels.mamba_scan.ops import TIME_CHUNK
 
 RNG = np.random.default_rng(25)
 
@@ -122,6 +123,61 @@ def test_scan_backward_ref_matches_reference_vjp(Bt, T, d, N, chunk):
                                 want):
             np.testing.assert_allclose(g.numpy(), np.asarray(ref), rtol=1e-4,
                                        atol=1e-4, err_msg=name)
+
+
+# the backward kernels' time chunks (ops.TIME_CHUNK steps): T within one,
+# exactly one, and ragged over several, for every state bucket
+SCAN_TIME_CASES = [(2, T, 6, N) for N in (4, 8, 16, 32)
+                   for T in (50, TIME_CHUNK, 2 * TIME_CHUNK + 44)]
+
+
+def _scan_case(Bt, T, d, N):
+    delta = (np.log1p(np.exp(RNG.normal(size=(Bt, T, d)))) * 0.1)
+    arrs = [a.astype(np.float32) for a in (
+        delta, RNG.normal(size=(Bt, T, d)), RNG.normal(size=(Bt, T, N)),
+        RNG.normal(size=(Bt, T, N)), -np.exp(RNG.normal(size=(d, N)) * 0.5),
+        RNG.normal(size=(Bt, d, N)))]
+    dy = RNG.normal(size=(Bt, T, d)).astype(np.float32)
+    dhT = RNG.normal(size=(Bt, d, N)).astype(np.float32)
+    return arrs, dy, dhT
+
+
+@pytest.mark.parametrize("Bt,T,d,N", SCAN_TIME_CASES)
+def test_scan_backward_time_chunks_match_reference_vjp(Bt, T, d, N):
+    """The kernels' three passes in plain torch (each time chunk's sweep
+    from a zero end, the chunks' ends chained from dhT, each chunk's walk
+    from its own end) against ``jax.vjp`` of the reference (the tolerance
+    above), and against the one walk (fp32 sums regrouped at the time
+    chunks' ends: within rtol 1e-5 and an atol of 1e-5 times the
+    gradient's largest value, as ``chip_smoke.py`` scales the long sums)."""
+    arrs, dy, dhT = _scan_case(Bt, T, d, N)
+    (_, _), vjp = jax.vjp(ref_scan, *map(jnp.asarray, arrs))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dhT)))
+    ts = [torch.from_numpy(a) for a in arrs]
+    _, _, carries = mamba_scan_ref(*ts, carries=True)
+    dy, dhT = torch.from_numpy(dy), torch.from_numpy(dhT)
+    got = mamba_scan_backward_ref(*ts, carries, dy, dhT,
+                                  time_chunk=TIME_CHUNK)
+    walk = mamba_scan_backward_ref(*ts, carries, dy, dhT)
+    for name, g, w, ref in zip(("delta", "x", "B", "C", "A", "h0"), got,
+                               walk, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(
+            g.numpy(), w.numpy(), rtol=1e-5,
+            atol=1e-5 * max(1.0, float(w.abs().max())), err_msg=name)
+    if T <= TIME_CHUNK:      # one time chunk: its walk is the one walk
+        for g, w in zip(got[:4], walk[:4]):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_scan_backward_time_chunk_is_whole_carry_intervals():
+    arrs, dy, dhT = _scan_case(1, 40, 3, 16)
+    ts = [torch.from_numpy(a) for a in arrs]
+    _, _, carries = mamba_scan_ref(*ts, carries=True)
+    with pytest.raises(ValueError, match="carry intervals"):
+        mamba_scan_backward_ref(*ts, carries, torch.from_numpy(dy),
+                                torch.from_numpy(dhT), time_chunk=24)
 
 
 def test_scan_carries_are_the_states_before_each_chunk():
