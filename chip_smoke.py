@@ -33,7 +33,10 @@ Phases (any failure raises and the script exits non-zero):
    at every head dim.  The grouped sums also run at the sharded runs'
    shapes: a shard's Q4.1, Q1.1 and supplier partials and the mesh
    combiner's sums (the supplier's on the wide direct route, one launch),
-   and at 2^20 cells on the partitioned route beside ``index_add_``.  The
+   and on the partitioned route (two launches) beside ``index_add_``'s
+   device time: 2^20 cells (4M rows; its device time printed against the
+   targets PARTITIONED_TARGETS), SF1 lineorder by lo_partkey and by
+   lo_custkey, the part-keyed combiner and the sort route's 4M keys.  The
    two backward kernels (training's gradients) at the trained models'
    microbatch shapes (flash: stablelm-3b's [2, 2048, 32, 80] bf16, causal,
    beside scaled_dot_product_attention's forward + backward; the scan:
@@ -62,6 +65,10 @@ Phases (any failure raises and the script exits non-zero):
    degradation and every row on one shard; each prints its wall, rows/s,
    shard rows, transfers, shuffle bytes and kernel launches, counted from
    0 just before it (the process route's include its workers').
+   Then the keyed Aggregates on the partitioned grouped sums, each twice
+   and byte-identical, within FLOAT_RTOL of a float64 oracle: by
+   lo_partkey (200,000 groups) serial on the optimized engine and over 4
+   mesh shards (against the serial run), by lo_custkey (30,000) serial.
    Then kernel failures on SF1 Q4.1 (streaming, fused, 8 splits): the
    probe's CUDA entry raising once, the radix groupby's raising once, and a
    kernel library that cannot load; the card has no degradation ladder, so
@@ -369,25 +376,27 @@ def backward_ptxas(build_log: str) -> None:
 
 
 def grouped_ptxas(build_log: str) -> None:
-    """Print each grouped-sum direct-route instance's registers and spills
-    (value columns kept in registers, 32-row batches loaded at a time,
-    blocks an SM it is bounded for: the narrow one and the two wide ones,
-    in each of the two sources); none may spill."""
+    """Print each grouped-sum instance's registers and spills: the direct
+    route's (value columns kept in registers, 32-row batches loaded at a
+    time, blocks an SM it is bounded for: the narrow one and the two wide
+    ones) and the partitioned route's partition and accumulate kernels (few
+    columns, up to 32), in each of the two sources; none may spill."""
     rows = set()
     for name, (regs, spills) in ptxas_entries(build_log).items():
-        m = re.search(r"gs_directILi(\d+)ELi(\d+)ELi(\d+)E", name)
+        m = re.search(r"gs_(direct|partition|accumulate)ILi(\d+)ELi(\d+)"
+                      r"ELi(\d+)E", name)
         if m:
-            rows.add((int(m.group(1)), int(m.group(2)), int(m.group(3)),
-                      regs, spills))
+            rows.add((m.group(1), int(m.group(2)), int(m.group(3)),
+                      int(m.group(4)), regs, spills))
     if not rows:
         log("  grouped-sum ptxas: no report (the library was already built)")
         return
-    for cols, batches, blocks, regs, spills in sorted(rows):
-        log(f"  grouped-sum ptxas: direct route, {cols} columns, {batches} "
+    for kind, cols, batches, blocks, regs, spills in sorted(rows):
+        log(f"  grouped-sum ptxas: {kind}, {cols} columns, {batches} "
             f"batches in flight, {blocks} block(s) an SM: {regs} registers "
             f"a thread, {spills} bytes of spills")
         if spills:
-            raise AssertionError(f"gs_direct<{cols}, {batches}, {blocks}> "
+            raise AssertionError(f"gs_{kind}<{cols}, {batches}, {blocks}> "
                                  f"spills {spills} bytes")
 
 
@@ -565,7 +574,13 @@ def _grouped_case(label, ids, vals, n_groups, kernel, plain, library,
     # the library call's device time beside the kernel's where the
     # partitioned route's six launches meet one index_add_
     library_device_ms = (call_kernels(library)[1] if not direct else None)
-    lib_dev = (f" library_device_ms={fmt(library_device_ms)}"
+    by_pass = (device_split_ms(lambda: kernel(ids, vals, n_groups),
+                               PARTITIONED_KERNELS, calls=5)
+               if not direct else None)
+    lib_dev = (f" library_device_ms={fmt(library_device_ms)} "
+               f"device_ms_by_pass=" + (",".join(
+                   f"{k}:{v:.4f}" for k, v in by_pass.items())
+                   if by_pass else "not measured")
                if not direct else "")
     log(f"  {label}: rows={n} C={c} groups={n_groups} route={route} "
         f"{'exact' if exact else 'order-bound'} max_abs_err={err:.6g} "
@@ -579,7 +594,12 @@ def _grouped_case(label, ids, vals, n_groups, kernel, plain, library,
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b,
                 bound_by=by, max_abs_err=err, kernels_a_call=n_kernels,
                 device_ms=device_ms, library_device_ms=library_device_ms,
-                direct=direct, route=route)
+                device_ms_by_pass=by_pass, direct=direct, route=route)
+
+
+#: the partitioned route's two launches (csrc/grouped_sum.cuh)
+PARTITIONED_KERNELS = (("gs_partition", "partition"),
+                       ("gs_accumulate", "accumulate"))
 
 
 def call_kernels(fn, attempts: int = 3):
@@ -606,9 +626,10 @@ def call_kernels(fn, attempts: int = 3):
 
 
 def check_main_launches(label: str, m: dict) -> None:
-    """A grouped sum at a main-path or sharded shape runs at most two
+    """A grouped sum at a main-path, sharded or keyed shape runs at most two
     kernels a call, on every route (the direct routes, narrow and wide,
-    launch one; the supplier shard and combiner take the wide one)."""
+    launch one, the partitioned route two; the supplier shard and combiner
+    take the wide one)."""
     if m["kernels_a_call"] is not None and m["kernels_a_call"] > 2:
         raise AssertionError(f"{label}: one call launched "
                              f"{m['kernels_a_call']} device kernels, more "
@@ -695,14 +716,58 @@ def phase_radix_groupby(rng) -> dict:
             f"radix_groupby[{label}]", ids, v, cells, kernel,
             radix_groupby_ref, _index_add_yardstick(ids, v, cells, True),
             with_counts=True, exact=exact)
+        check_main_launches(f"radix_groupby[{label}]", extra[label])
+    partitioned_targets(extra)
+    # the partitioned route on the ETL path: SF1 lineorder (6M rows)
+    # aggregated by lo_partkey (200,000 ids: 196 partitions) and by
+    # lo_custkey (30,000 ids: 235 partitions), each in 2 slices, revenue
+    # sums and counts; then small integers on the same ids (exact)
+    n = SF1["lineorder_rows"]
+    revenue = (rng.integers(90_000, 1_100_000, n)
+               * (100 - rng.integers(0, 11, n)) // 100).astype(np.float32)
+    for label, groups in (("part_keyed", SF1["parts"]),
+                          ("customer_keyed", SF1["customers"])):
+        ids = torch.from_numpy(rng.integers(0, groups, n).astype(np.int32)
+                               ).to(dev)
+        for case, vals, exact in (
+                (label, revenue[:, None], False),
+                (f"{label}_int", rng.integers(0, 8, (n, 1)), True)):
+            v = torch.from_numpy(vals.astype(np.float32)).to(dev)
+            extra[case] = _grouped_case(
+                f"radix_groupby[{case}]", ids, v, groups, kernel,
+                radix_groupby_ref, _index_add_yardstick(ids, v, groups, True),
+                with_counts=True, exact=exact)
+            check_main_launches(f"radix_groupby[{case}]", extra[case])
+        del ids
     return dict(results["q41_profit"], **{
-        k: _case_summary(m) for k, m in extra.items()})
+        k: _case_summary(m) for k, m in extra.items()
+        if not k.endswith("_int") or k.startswith("2^20")})
+
+
+#: the partitioned route's device time at 2^20 cells a call at most, C 1
+#: and C 2: a quarter of the six-launch route's (0.9364 / 0.9958 ms on an
+#: NVIDIA H100 80GB HBM3 at 700 W, PERF.md)
+PARTITIONED_TARGETS = {"2^20cells_int": 0.234, "2^20cells_float": 0.249}
+
+
+def partitioned_targets(cases: dict) -> None:
+    """Print the 2^20-cell cases' device time against the targets and
+    against ``index_add_``'s device time in the same run."""
+    for label, target in PARTITIONED_TARGETS.items():
+        m = cases[label]
+        dev_ms, lib = m["device_ms"], m["library_device_ms"]
+        log(f"  radix_groupby[{label}] partitioned route: kernels_a_call="
+            f"{m['kernels_a_call']} device_ms={dev_ms} target_ms={target} "
+            f"target_met={dev_ms is not None and dev_ms <= target} "
+            f"library_device_ms={lib} at_or_below_library="
+            f"{None if dev_ms is None or lib is None else dev_ms <= lib}")
 
 
 def _case_summary(m: dict) -> dict:
     """A grouped-sum case's numbers for the kernels line."""
     return {k: m[k] for k in ("route", "ms", "device_ms", "kernels_a_call",
-                              "library_ms", "library_device_ms", "bound_ms",
+                              "device_ms_by_pass", "plain_ms", "library_ms",
+                              "library_device_ms", "bound_ms", "bound_by",
                               "max_abs_err")}
 
 
@@ -755,8 +820,31 @@ def phase_segment_sum(rng) -> dict:
     _grouped_case("segment_sum[G=4096_int]", ids, v, groups, kernel,
                   segment_sum_ref, _index_add_yardstick(ids, v, groups, False),
                   with_counts=False, exact=True)
-    return dict(results["q11_revenue"], supplier_combiner=_case_summary(
-        extra["supplier_combiner"]))
+    # the partitioned route: the mesh combiner of the part-keyed Aggregate
+    # over 4 shards (each key's partial from one shard: 200,000 rows over
+    # 200,000 ids, in shard order), and the sort route's segment sum over
+    # 4M distinct keys (4M rows over 4M ascending ids: 977 partitions of
+    # 4,096 ids)
+    n = SF1["parts"]
+    comb = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+    asc = torch.arange(4_000_000, dtype=torch.int32, device=dev)
+    for label, ids, hi, exact in (
+            ("part_combiner", comb, 1 << 30, False),
+            ("part_combiner_int", comb, 1 << 10, True),
+            ("sort_4m", asc, 1 << 30, False),
+            ("sort_4m_int", asc, 1 << 10, True)):
+        g = ids.shape[0]
+        v = torch.from_numpy(rng.integers(0, hi, (g, 1)).astype(np.float32)
+                             ).to(dev)
+        extra[label] = _grouped_case(
+            f"segment_sum[{label}]", ids, v, g, kernel, segment_sum_ref,
+            _index_add_yardstick(ids, v, g, False), with_counts=False,
+            exact=exact)
+        if label.startswith("part_combiner"):
+            check_main_launches(f"segment_sum[{label}]", extra[label])
+    return dict(results["q11_revenue"], **{
+        k: _case_summary(extra[k])
+        for k in ("supplier_combiner", "part_combiner", "sort_4m")})
 
 
 # ---------------------------------------------------------------------------
@@ -1517,26 +1605,27 @@ PROCESS_SHARDS = 2
 ETL_KERNELS = ("hash_probe", "radix_groupby", "segment_sum")
 
 
-def suppkey_flow(data):
-    """lineorder -> Aggregate(lo_suppkey: revenue sum, row count) -> sink.
-    Keyed on a source column, so the shard planner partitions by hash (each
-    supplier's rows on one shard); 2,000 groups at SF1."""
+def keyed_flow(data, key: str):
+    """lineorder -> Aggregate(key: revenue sum, row count) -> sink.  Keyed
+    on a source column, so the shard planner partitions by hash (each key's
+    rows on one shard): lo_suppkey 2,000 groups at SF1, lo_custkey 30,000,
+    lo_partkey 200,000."""
     from repro_torch.core.graph import Dataflow
     from repro_torch.etl.components import Aggregate, ArraySource, CollectSink
-    flow = Dataflow("suppkey-revenue")
+    flow = Dataflow(f"{key}-revenue")
     sink = CollectSink("sink")
     flow.chain(ArraySource("lineorder", data.lineorder),
-               Aggregate("by_supplier", ["lo_suppkey"],
+               Aggregate(f"by_{key}", [key],
                          {"revenue": ("lo_revenue", "sum"),
                           "orders": ("lo_revenue", "count")}),
                sink)
     return flow, sink
 
 
-def suppkey_oracle(data) -> dict:
-    key = data.lineorder["lo_suppkey"]
-    uniq, inv = np.unique(key, return_inverse=True)
-    return {"lo_suppkey": uniq,
+def keyed_oracle(data, key: str) -> dict:
+    """The keyed flow's float64 oracle: ``np.unique`` + ``bincount``."""
+    uniq, inv = np.unique(data.lineorder[key], return_inverse=True)
+    return {key: uniq,
             "revenue": np.bincount(inv, weights=data.lineorder["lo_revenue"]
                                    .astype(np.float64)),
             "orders": np.bincount(inv).astype(np.int64)}
@@ -1666,14 +1755,15 @@ def phase_sharded(data, expect: dict, serial: dict) -> dict:
         expect["Q1.1"], serial["Q1.1", "optimized"], rows,
         ("hash_probe", "segment_sum"), shards=SHARDS, shard_impl="mesh")
     add(counts)
-    supp = session.run(suppkey_flow(data), engine="streaming", fuse=True,
-                       num_splits=8)
+    supp = session.run(keyed_flow(data, "lo_suppkey"), engine="streaming",
+                       fuse=True, num_splits=8)
     supp_serial = supp.table
     log(f"  lo_suppkey serial: wall={supp.run.wall_time:.4f}s "
         f"rows/s={rows / supp.run.wall_time:.6g}")
     _, run, counts = sharded_run(
-        session, f"lo_suppkey shards={SHARDS} mesh", suppkey_flow(data),
-        suppkey_oracle(data), supp_serial, rows,
+        session, f"lo_suppkey shards={SHARDS} mesh",
+        keyed_flow(data, "lo_suppkey"), keyed_oracle(data, "lo_suppkey"),
+        supp_serial, rows,
         ("radix_groupby", "segment_sum"), shards=SHARDS, shard_impl="auto")
     if run.shard.mode != "hash" or run.shard.impl != "mesh":
         raise AssertionError(f"lo_suppkey: {run.shard.impl}/"
@@ -1703,6 +1793,84 @@ def phase_sharded(data, expect: dict, serial: dict) -> dict:
     log(f"  Q4.1 process route: first run (spawns {PROCESS_SHARDS} workers) "
         f"{walls[0]:.4f}s, second {walls[1]:.4f}s: spawn and worker start "
         f"about {walls[0] - walls[1]:.4f}s")
+    return total
+
+
+def phase_keyed(data) -> dict:
+    """The partitioned grouped sums on the ETL path: SF1 lineorder through
+    keyed Aggregates on ``torch`` (fused, 8 splits).  By lo_partkey
+    (200,000 ids) serial on the optimized engine, then over 4 shards on the
+    mesh route (each shard's groupby over the whole id range, the
+    combiner's segment sum over 200,000 ids); by lo_custkey (30,000 ids)
+    serial.  Each run twice, byte-identical, within FLOAT_RTOL of its
+    float64 oracle, with no degradation; each prints its wall, rows/s and
+    the grouped sums' launches, counted from 0 just before it.  Returns
+    the launches of all these runs."""
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launches
+    session = repro_torch.Session(backend="torch", metadata=None)
+    rows = len(data.lineorder["lo_orderkey"])
+    total = {k: 0 for k in ETL_KERNELS}
+
+    def twice(label, run_once):
+        tables = []
+        for attempt in (1, 2):
+            got, counts = run_once(f"{label}#{attempt}")
+            for k in total:
+                total[k] += counts[k]
+            tables.append(got)
+        first, second = tables
+        for k in first:
+            if (first[k].dtype != second[k].dtype
+                    or first[k].tobytes() != second[k].tobytes()):
+                raise AssertionError(f"{label}: second run differs in {k}")
+        log(f"  {label}: second run byte-identical")
+        return first
+
+    def serial(key, expect):
+        def once(label):
+            torch.cuda.synchronize()
+            reset_launches()
+            res = session.run(keyed_flow(data, key), engine="optimized",
+                              fuse=True, num_splits=8)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            run = res.run
+            check_oracle(res.table, expect, FLOAT_RTOL, label)
+            if run.degradations != 0:
+                raise AssertionError(f"{label}: degradations "
+                                     f"{run.degradation_events}")
+            if counts["radix_groupby"] < 1:
+                raise AssertionError(f"{label}: radix_groupby never "
+                                     f"launched")
+            log(f"  {label}: wall={run.wall_time:.4f}s "
+                f"rows/s={rows / run.wall_time:.6g} "
+                f"groups={len(res.table[key])} launches="
+                f"{ {k: counts[k] for k in ETL_KERNELS} } "
+                f"oracle_rtol={FLOAT_RTOL} ok")
+            return res.table, counts
+        return once
+
+    def sharded(key, expect, serial_table):
+        def once(label):
+            got, run, counts = sharded_run(
+                session, label, keyed_flow(data, key), expect, serial_table,
+                rows, ("radix_groupby", "segment_sum"), shards=SHARDS,
+                shard_impl="mesh")
+            if run.shard.mode != "hash" or run.shard.impl != "mesh":
+                raise AssertionError(f"{label}: {run.shard.impl}/"
+                                     f"{run.shard.mode}, expected mesh/hash")
+            check_oracle(got, expect, FLOAT_RTOL, label)
+            return got, counts
+        return once
+
+    part = keyed_oracle(data, "lo_partkey")
+    part_serial = twice("lo_partkey serial optimized",
+                        serial("lo_partkey", part))
+    twice(f"lo_partkey shards={SHARDS} mesh",
+          sharded("lo_partkey", part, part_serial))
+    twice("lo_custkey serial optimized",
+          serial("lo_custkey", keyed_oracle(data, "lo_custkey")))
     return total
 
 
@@ -3304,6 +3472,10 @@ def main() -> int:
     log(f"sharded runs (SSB SF1, backend torch, fused, streaming, 8 splits):")
     for k, v in phase_sharded(data, expect, serial).items():
         launches[k] += v
+    log("keyed Aggregates on the partitioned grouped sums (SSB SF1 "
+        "lineorder, backend torch, fused, 8 splits):")
+    for k, v in phase_keyed(data).items():
+        launches[k] += v
     log("kernel failures (SSB SF1 Q4.1, backend torch, streaming, fused, "
         "8 splits):")
     phase_faults(data)
@@ -3394,9 +3566,15 @@ def main() -> int:
                 "supplier_shard (1.5M rows, 2,000 ids + counts) and "
                 "supplier_combiner (2,000 rows, 2,000 ids): the hash-mode "
                 "supplier flow's sharded sums, on the wide direct route; "
-                "2^20cells_*: 4M rows over 2^20 ids, the partitioned route, "
-                "device_ms and library_device_ms (index_add_) from "
-                "torch.profiler")
+                "the partitioned route (two launches): 2^20cells_*, 4M rows "
+                "over 2^20 ids; part_keyed and customer_keyed, 6M rows over "
+                "200,000 and 30,000 ids + counts (SF1 lineorder by "
+                "lo_partkey, lo_custkey); part_combiner, 200,000 rows over "
+                "200,000 ids (the 4-shard part-keyed flow's combiner); "
+                "sort_4m, 4M rows over 4M ascending ids (the sort route, "
+                "global counters); device_ms and library_device_ms "
+                "(index_add_) from torch.profiler; launches include the "
+                "keyed Aggregates' (phase 3)")
         if name == "hash_probe":
             row.update({k: m[k] for k in ("device_ms", "other_tables")})
             row["probe_note"] = ("1,048,576 rows against part; device_ms "

@@ -53,12 +53,12 @@ _SIGNATURES = {
     #: stream
     "repro_hash_probe": (_P, _I, _I64, _I, _I64, _P, _P, _P, _P, _P, _P, _P),
     #: ids, values, values' row stride, n, C, n_groups, rows_per_block,
-    #: n_slices, int and float workspace, sums, sums' row stride, counts
-    #: (radix groupby only), stream
-    "repro_radix_groupby": (_P, _P, _I64, _I64, _I, _I, _I64, _I, _P, _P, _P,
-                            _I64, _P, _P),
-    "repro_segment_sum": (_P, _P, _I64, _I64, _I, _I, _I64, _I, _P, _P, _P,
-                          _I64, _P),
+    #: n_blocks, n_slices, int and float workspace, sums, sums' row stride,
+    #: counts (radix groupby only), stream
+    "repro_radix_groupby": (_P, _P, _I64, _I64, _I, _I, _I64, _I, _I, _P, _P,
+                            _P, _I64, _P, _P),
+    "repro_segment_sum": (_P, _P, _I64, _I64, _I, _I, _I64, _I, _I, _P, _P,
+                          _P, _I64, _P),
     #: C, with_counts, n_groups, int* blocks: the wide route's co-resident
     #: grid on the current device
     "repro_radix_groupby_wide_blocks": (_I, _I, _I, _P),

@@ -17,13 +17,26 @@ Three routes, chosen from the shapes alone:
     kernel library reports (``wide_blocks``: the occupancy API times the
     SMs).  The supplier shard (2,000 ids with counts) and its combiner
     take it.
-- **partitioned**, for larger id spaces: a stable counting sort into
-  256-id partitions, then per-partition sums in row order (six launches).
+- **partitioned**, for larger id spaces (the part key's 200,000 ids, the
+  customer key's 30,000, 2^20 dense cells, the sort route's segments): two
+  cooperative launches.  The first is a stable counting sort by partition
+  (``part_width`` ids: about ``PART_TARGET`` partitions, within 4,096 ids
+  at one column down to 128 at 33) that moves each row's record (local
+  id, values) into its partition's range; the second sums each
+  partition's records in row order, warp partials in shared memory summed
+  in warp order, with ``n_slices`` slices a partition summed in slice
+  order where partitions are few and long.  A partition block sorts
+  ``part_tile`` rows at a time in shared memory and writes each
+  partition's run of them whole; where its counters leave no room for a
+  tile, warps' counters sit in global memory (``GLOBAL_HIST`` entries)
+  and records go out one by one.
 
 The plan fixes the row ranges and slice counts from ``n``, ``n_groups``,
 the column count and, on the wide route, the card's co-resident blocks,
 so the order of every float addition depends on the input and the card
-only.  It is cached: the same shapes give the same plan object.
+only (the partitioned route's on the input and the shapes alone: its
+grids, which the kernel library takes from the card, do not change it).
+It is cached: the same shapes give the same plan object.
 Bound: bytes, about 0.2 us at the SSB shapes, below one launch's cost, so
 at those shapes the call's host work and its one launch are the time."""
 from __future__ import annotations
@@ -36,7 +49,6 @@ import torch
 
 from . import _cuda
 
-PART_GROUPS = 256            # ids per partition (kPartGroups in the .cuh)
 MAX_COLS = 32                # value columns (C); the counts column is extra
 DIRECT_WARPS = 8             # warps a direct-route block (kDirectWarps)
 #: floats of shared memory a narrow direct-route warp may hold: 48 KB over
@@ -48,17 +60,39 @@ WIDE_FLOATS = 7168
 #: blocks to aim for: two per SM of the H100's 132.  The direct route's
 #: grid never exceeds it (kDirectMaxBlocks), so it is co-resident
 TARGET_BLOCKS = 264
-#: rows the partitioned route's accumulate pass stages at a time (kTile)
-TILE_ROWS = 1024
-#: bound on the partitioned route's [row blocks, partitions] histogram
-#: (int32 entries), met by growing the row blocks until one holds every row
-MAX_HIST = 1 << 20
+#: warps a block of the partitioned route's two kernels (kPartWarps)
+PART_WARPS = 8
+#: log2 of a partition's ids, at most and at least (kPartLogMax/Min)
+PART_LOG_MAX, PART_LOG_MIN = 12, 5
+#: partitions the width aims for at most (kPartTarget)
+PART_TARGET = 256
+#: a partition block's dynamic shared memory at most (kPartSmemBytes), and
+#: the most that leaves room for a second block on an SM (kPartSmemTwo),
+#: which a tile of TILE_TWO rows or more takes (kTileTwo)
+PART_SMEM_BYTES, PART_SMEM_TWO, TILE_TWO = 221_184, 110_592, 2048
+#: rows a partition block sorts in shared memory at a time, at most and at
+#: least (kTileMax, kTileMin)
+TILE_MAX, TILE_MIN = 4096, 1024
+#: the histogram's rows with counters in shared memory: the partition
+#: pass's most blocks (its grid is also within what the card holds)
+PART_MAX_BLOCKS = 264
+#: the histogram's most entries with counters in global memory, one row of
+#: n_parts a warp of rows
+GLOBAL_HIST = 1 << 22
+#: (partition, slice) items the accumulate pass aims for, and the rows a
+#: slice holds at least: slices only where partitions are few and long
+#: (fewer than 2 x SLICE_TARGET items of WIDE_FLOATS floats of partials)
+SLICE_TARGET = TARGET_BLOCKS
+SLICE_ROWS = 4096
 
 
 class Plan(NamedTuple):
-    #: one cooperative launch (narrow or wide); else partitioned
+    #: one cooperative launch (narrow or wide); else partitioned (two)
     direct: bool
+    #: direct route: a block's rows
     rows_per_block: int
+    #: direct route: the grid; partitioned: the histogram's rows (the
+    #: partition pass's most blocks, or its global counters' warps)
     n_blocks: int
     #: partitioned route: partitions, padded id space, slices a partition
     n_parts: int
@@ -68,6 +102,40 @@ class Plan(NamedTuple):
     float_words: int
     #: the direct route's partials past 48 KB of shared memory
     wide: bool = False
+
+    @property
+    def launches(self) -> int:
+        """Device kernels a call launches."""
+        return 1 if self.direct else 2
+
+
+def part_width(n_groups: int, cols: int) -> int:
+    """Ids a partition holds (``part_log_width``): the fewest, a power of
+    two of 32 or more, that cut ``n_groups`` ids into ``PART_TARGET``
+    partitions at most, within the most whose warp partial of ids x
+    ``cols`` floats fits ``WIDE_FLOATS``."""
+    top = PART_LOG_MAX
+    while top > PART_LOG_MIN and (1 << top) * cols > WIDE_FLOATS:
+        top -= 1
+    log_w = PART_LOG_MIN
+    while log_w < top and -(-n_groups // (1 << log_w)) > PART_TARGET:
+        log_w += 1
+    return 1 << log_w
+
+
+def part_tile(n_parts: int, n_values: int) -> int:
+    """Rows a partition block sorts at a time in shared memory
+    (``part_tile``): the most, a multiple of 256 up to ``TILE_MAX``, whose
+    records (1 + C words) and slots fit beside the block's 18 n_parts + 1
+    counters and masks in ``PART_SMEM_TWO`` (two blocks an SM) where that
+    leaves ``TILE_TWO`` rows, else in ``PART_SMEM_BYTES``; 0 (counters in
+    global memory) below ``TILE_MIN``."""
+    def fit(budget: int) -> int:
+        free = max(0, budget - (18 * n_parts + 1) * 4)
+        return min(TILE_MAX, free // ((2 + n_values) * 4) // 256 * 256)
+    if fit(PART_SMEM_TWO) >= TILE_TWO:
+        return fit(PART_SMEM_TWO)
+    return fit(PART_SMEM_BYTES) if fit(PART_SMEM_BYTES) >= TILE_MIN else 0
 
 
 def is_direct(n_groups: int, n_values: int, with_counts: bool) -> bool:
@@ -113,20 +181,20 @@ def plan(n: int, n_groups: int, n_values: int, with_counts: bool,
         partials = n_blocks * n_groups * cols if n_blocks > 1 else 0
         return Plan(True, rows_per_block, n_blocks, 0, 0, 0, int_words=0,
                     float_words=partials, wide=wide)
-    n_parts = max(1, -(-n_groups // PART_GROUPS))
-    rows_per_block = 1024
-    while (-(-n // rows_per_block) * n_parts > MAX_HIST
-           and rows_per_block < n):
-        rows_per_block *= 2
-    n_blocks = max(1, -(-n // rows_per_block))
-    # enough slices to fill the card, but no more than a partition's mean
-    # rows fill (TILE_ROWS each): an empty slice still writes its partials
-    n_slices = max(1, min(-(-TARGET_BLOCKS // n_parts),
-                          -(-n // (n_parts * TILE_ROWS))))
-    g_pad = n_parts * PART_GROUPS
-    return Plan(False, rows_per_block, n_blocks, n_parts, g_pad, n_slices,
-                int_words=n_blocks * n_parts + n_parts + 1 + 2 * n,
-                float_words=n_slices * g_pad * cols)
+    width = part_width(n_groups, cols)
+    n_parts = max(1, -(-n_groups // width))
+    g_pad = n_parts * width
+    hist_rows = (PART_MAX_BLOCKS if part_tile(n_parts, n_values)
+                 else max(1, min(PART_MAX_BLOCKS * PART_WARPS,
+                                 GLOBAL_HIST // n_parts)))
+    # slices fill the card where partitions are few, each of SLICE_ROWS
+    # rows at least
+    n_slices = max(1, min(-(-SLICE_TARGET // n_parts),
+                          n // (n_parts * SLICE_ROWS)))
+    partials = n_slices * g_pad * cols if n_slices > 1 else 0
+    return Plan(False, 0, hist_rows, n_parts, g_pad, n_slices,
+                int_words=hist_rows * n_parts + 2 * n_parts + 1,
+                float_words=n * (1 + n_values) + partials)
 
 
 #: the direct route's scratch, one buffer per (device, stream) holding the
@@ -260,7 +328,7 @@ def _launch_batch(name: str, ids: torch.Tensor, values: torch.Tensor,
     with _cuda.device_guard(ids):
         _cuda.count_launch(name)
         rc = entry(ids.data_ptr(), values.data_ptr(), values.stride(0), n, c,
-                   n_groups, p.rows_per_block, p.n_slices, iws, fws, *out,
-                   stream)
+                   n_groups, p.rows_per_block, p.n_blocks, p.n_slices, iws,
+                   fws, *out, stream)
     _cuda.check(rc, name)
     return sums, counts

@@ -1,11 +1,12 @@
-"""Planted faults against the backward kernels' checks, on a machine with
-an H100 and ``nvcc``:
+"""Planted faults against the kernels' checks, on a machine with an H100
+and ``nvcc``:
 
-    python3 tests/_planted_faults.py
+    python3 tests/_planted_faults.py            # every copy
+    python3 tests/_planted_faults.py --copy 3   # the third copy alone
 
-Copies ``src/`` and ``chip_smoke.py`` into two temporary directories,
-plants faults in each copy's CUDA sources (three in the first, one in the
-second), builds each copy and holds its gradients against the plain
+Copies ``src/`` and ``chip_smoke.py`` into three temporary directories,
+plants faults in each copy's CUDA sources (three in the first, one in
+each other), builds each copy and holds its results against the plain
 versions with ``chip_smoke.py``'s checks:
 
 - ``flash_attention_bwd.cu``: the bf16 wgmma dK/dV kernel (producer and
@@ -23,10 +24,16 @@ versions with ``chip_smoke.py``'s checks:
 - second copy, ``mamba_scan_bwd.cu``: the cross-chunk pass skips time
   chunk 1's decay (chunk 0's walk starts from u(1) alone); at the same
   shape each of dA, dB (atol times the largest value) and dx must fail
-  ``SCAN_TOL``.
+  ``SCAN_TOL``;
+- third copy, ``grouped_sum.cuh``: the partitioned route's scatter ranks
+  a tile's rows by the order of its warps' ``atomicAdd`` on one counter a
+  partition in place of lane and warp order; at SF1 lineorder by
+  lo_custkey (6M rows, 30,000 ids) and at 2^20 cells (4M rows, C 2), with
+  fractional values, ``_grouped_case``'s two launches must differ (its
+  integer case, whose sums do not depend on the order, is printed beside).
 
-Prints a line a gradient (its gap against the limit) and exits 1 if any
-planted fault passes the check meant to catch it.  The repo's own tree
+Prints a line a gradient or case (its gap against the limit) and exits 1
+if any planted fault passes the check meant to catch it.  The repo's own tree
 is not touched.
 """
 import os
@@ -53,6 +60,14 @@ COPIES = [
         ("g = __fmaf_rn(p[j], g, u[j]);",
          "g = k != 1 ? __fmaf_rn(p[j], g, u[j]) : u[j];")]},
      ((4, "A"), (2, "B"), (1, "x"))),
+    ({"grouped_sum.cuh": [
+        ("tc + warp * n_parts, cnt_blk, start,", "tc, cnt_blk, start,"),
+        ("const int32_t j = first + rank;",
+         "const int32_t j = kStaged ? atomicAdd((int32_t*)cnt + p, 1) "
+         ": first + rank;"),
+        ("if (p >= 0 && rank == 0) cnt[p] = first + n_p;",
+         "if (false) cnt[p] = first + n_p;")]},
+     ()),
 ]
 #: gradients whose atol scales with their largest value (long sums)
 LONG_SUMS = ("A", "B", "C")
@@ -111,7 +126,9 @@ def check_copy(which: int) -> int:
                   f"{'passes' if elementwise else 'fails'}")
             if n in "kv" and tile <= c.FLASH_BWD_REL_BF16:
                 missed.append(f"flash S={S} d{n}")
-    for dtype in (bf16, torch.float32):
+    if "grouped_sum.cuh" in faults:
+        missed += check_grouped(c)
+    for dtype in (bf16, torch.float32) if scan_grads else ():
         args = c._scan_inputs(gen, 1, 2048, 8192, 16, False, dtype)
         dy = torch.randn((1, 2048, 8192), generator=gen, device="cuda")
         dhT = torch.randn((1, 8192, 16), generator=gen, device="cuda")
@@ -138,9 +155,50 @@ def check_copy(which: int) -> int:
     return 0
 
 
+def check_grouped(c) -> list:
+    """The planted scatter fault against ``_grouped_case``'s run-twice
+    check: fractional values at the customer key's and the 2^20-cell
+    shapes must give two launches that differ.  Returns the shapes where
+    they did not."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.radix_groupby import (radix_groupby,
+                                                   radix_groupby_ref)
+    kernel = functools.partial(radix_groupby, impl="cuda")
+    rng = np.random.default_rng(0)
+    missed = []
+    for label, n, groups, cols in (("customer_keyed", 6_000_000, 30_000, 1),
+                                   ("2^20cells", 4 << 20, 1 << 20, 2)):
+        ids = torch.from_numpy(rng.integers(0, groups, n).astype(np.int32)
+                               ).cuda()
+        for kind, exact in (("float", False), ("int", True)):
+            vals = (rng.random((n, cols)) if not exact
+                    else rng.integers(0, 8, (n, cols)))
+            v = torch.from_numpy(vals.astype(np.float32)).cuda()
+            try:
+                c._grouped_case(f"planted[{label}_{kind}]", ids, v, groups,
+                                kernel, radix_groupby_ref,
+                                c._index_add_yardstick(ids, v, groups, True),
+                                with_counts=True, exact=exact)
+                outcome = "PASSES"
+            except AssertionError as e:
+                outcome = f"fails: {e}"
+            print(f"grouped {label} {kind}: {outcome}", flush=True)
+            if not exact and "two launches differ" not in outcome:
+                missed.append(f"grouped {label}")
+    return missed
+
+
 def main() -> int:
     rc = 0
+    only = (int(sys.argv[sys.argv.index("--copy") + 1]) - 1
+            if "--copy" in sys.argv else None)
     for which, (faults, _) in enumerate(COPIES):
+        if only is not None and which != only:
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             copy = Path(tmp)
             shutil.copytree(ROOT / "src", copy / "src",

@@ -172,8 +172,8 @@ def test_grouped_sums_take_any_column_count(dev, op, c):
         assert _same(x, y)
 
 
-# 3.5M and 4M groups exceed the 12288 x 256 ids whose block counters fit
-# shared memory, so those cases run the global-memory counters
+# 3.5M and 4M groups: the partitioned route over 1,709 and 977 partitions
+# (of 2,048 and 4,096 ids)
 @pytest.mark.parametrize("n,c,g", [(100_000, 1, 147), (50_000, 3, 70_000),
                                    (1_000, 0, 16), (10, 2, 5_000),
                                    (4_000_000, 1, 3_500_000)])
@@ -203,36 +203,48 @@ def test_segment_sum_kernel_matches_plain(dev, n, c, g):
 # direct route's limit and one group above it (the wide route), at the wide
 # route's limit and one group above it (partitioned), the hash-mode
 # supplier flow's shard and combiner, C = 0 and C = 32, all rows padding
-# (ids -1 and >= n_groups), and fewer rows than one block's range.  Integer
-# values: byte-identical to the plain version; fractional values: a second
-# launch bit-identical to the first.
-@pytest.mark.parametrize("op,n,c,g,pad,direct", [
-    ("groupby", 5_000, 1, 768, 0.1, True),        # at the narrow limit
-    ("groupby", 5_000, 1, 769, 0.1, True),        # one above: wide
-    ("segsum", 5_000, 1, 1_536, 0.1, True),
-    ("segsum", 5_000, 1, 1_537, 0.1, True),
-    ("groupby", 20_000, 0, 1_536, 0.1, True),     # counts only
-    ("groupby", 20_000, 0, 1_537, 0.1, True),
-    ("groupby", 30_000, 32, 46, 0.1, True),       # 32 columns + counts
-    ("groupby", 30_000, 32, 47, 0.1, True),
-    ("segsum", 30_000, 32, 48, 0.1, True),
-    ("segsum", 30_000, 32, 49, 0.1, True),
-    ("groupby", 400_000, 1, 3_584, 0.1, True),    # at the wide limit
-    ("groupby", 400_000, 1, 3_585, 0.1, False),   # one above: partitioned
-    ("segsum", 400_000, 1, 7_168, 0.1, True),
-    ("segsum", 400_000, 1, 7_169, 0.1, False),
-    ("groupby", 60_000, 32, 217, 0.1, True),      # 32 columns, wide limit
-    ("groupby", 60_000, 32, 218, 0.1, False),
-    ("groupby", 1_500_000, 1, 2_000, 0.0, True),  # supplier shard
-    ("segsum", 2_000, 1, 2_000, 0.0, True),       # supplier combiner
-    ("groupby", 96_000, 1, 147, 1.0, True),       # all rows padding
-    ("segsum", 112_000, 1, 1, 1.0, True),
-    ("groupby", 70_000, 2, 5_000, 1.0, False),
-    ("groupby", 100, 2, 10, 0.1, True),           # under one block's rows
-    ("segsum", 100, 1, 1, 0.0, True),
-    ("segsum", 700_000, 3, 40, 0.05, True),       # 264 blocks, long ranges
+# (ids -1 and >= n_groups), and fewer rows than one block's range.  The
+# partitioned route (two launches) also past the partitions whose counters
+# fit shared memory (12,500 partitions of 128 ids at 33 columns), over the
+# sort route's 4M ascending ids, in slices (218 ids x 33 columns at 2M rows:
+# 7 partitions in 38 slices), with counts alone, with one id holding half
+# the rows and with fewer rows than a block's range.  Integer values:
+# byte-identical to the plain version; fractional values: a second launch
+# bit-identical to the first.
+@pytest.mark.parametrize("op,n,c,g,pad,direct,layout", [
+    ("groupby", 5_000, 1, 768, 0.1, True, "random"),   # at the narrow limit
+    ("groupby", 5_000, 1, 769, 0.1, True, "random"),   # one above: wide
+    ("segsum", 5_000, 1, 1_536, 0.1, True, "random"),
+    ("segsum", 5_000, 1, 1_537, 0.1, True, "random"),
+    ("groupby", 20_000, 0, 1_536, 0.1, True, "random"),  # counts only
+    ("groupby", 20_000, 0, 1_537, 0.1, True, "random"),
+    ("groupby", 30_000, 32, 46, 0.1, True, "random"),  # 32 columns + counts
+    ("groupby", 30_000, 32, 47, 0.1, True, "random"),
+    ("segsum", 30_000, 32, 48, 0.1, True, "random"),
+    ("segsum", 30_000, 32, 49, 0.1, True, "random"),
+    ("groupby", 400_000, 1, 3_584, 0.1, True, "random"),   # the wide limit
+    ("groupby", 400_000, 1, 3_585, 0.1, False, "random"),  # partitioned
+    ("segsum", 400_000, 1, 7_168, 0.1, True, "random"),
+    ("segsum", 400_000, 1, 7_169, 0.1, False, "random"),
+    ("groupby", 60_000, 32, 217, 0.1, True, "random"),  # 32 cols, wide limit
+    ("groupby", 60_000, 32, 218, 0.1, False, "random"),
+    ("groupby", 1_500_000, 1, 2_000, 0.0, True, "random"),  # supplier shard
+    ("segsum", 2_000, 1, 2_000, 0.0, True, "random"),  # supplier combiner
+    ("groupby", 96_000, 1, 147, 1.0, True, "random"),  # all rows padding
+    ("segsum", 112_000, 1, 1, 1.0, True, "random"),
+    ("groupby", 70_000, 2, 5_000, 1.0, False, "random"),
+    ("groupby", 100, 2, 10, 0.1, True, "random"),   # under one block's rows
+    ("segsum", 100, 1, 1, 0.0, True, "random"),
+    ("segsum", 700_000, 3, 40, 0.05, True, "random"),  # 264 blocks, long
+    ("groupby", 1_000_000, 32, 1_600_000, 0.1, False, "random"),  # global
+    ("segsum", 4_000_000, 1, 4_000_000, 0.0, False, "ascending"),  # sort
+    ("groupby", 2_000_000, 32, 218, 0.0, False, "random"),  # in slices
+    ("groupby", 500_000, 0, 20_000, 0.1, False, "random"),  # counts only
+    ("groupby", 1_000_000, 1, 50_000, 0.0, False, "skew"),  # a hot id
+    ("groupby", 1_000, 1, 10_000, 0.1, False, "random"),  # under a block
 ])
-def test_grouped_sum_routes_match_plain(dev, op, n, c, g, pad, direct):
+def test_grouped_sum_routes_match_plain(dev, op, n, c, g, pad, direct,
+                                        layout):
     from repro_torch.kernels import _grouped_sum as gs
     name = "radix_groupby" if op == "groupby" else "segment_sum"
     counts = op == "groupby"
@@ -241,9 +253,15 @@ def test_grouped_sum_routes_match_plain(dev, op, n, c, g, pad, direct):
            else 0)
     p = gs.plan(n, g, c, counts, cap)
     assert p.direct == direct and p.wide == wide
+    assert p.launches == (1 if direct else 2)
     if wide:
         assert p.n_blocks <= cap
-    ids = RNG.integers(0, g, n).astype(np.int32)
+    if layout == "ascending":
+        ids = (np.arange(n, dtype=np.int64) * g // n).astype(np.int32)
+    else:
+        ids = RNG.integers(0, g, n).astype(np.int32)
+    if layout == "skew":
+        ids[RNG.random(n) < 0.5] = g // 3
     drop = RNG.random(n) < pad
     ids[drop] = np.where(RNG.random(int(drop.sum())) < 0.5, -1,
                          g + RNG.integers(0, 3, int(drop.sum())))

@@ -231,10 +231,10 @@ def test_grouped_sum_plan_sizes():
     """The launch plan the CUDA kernels follow.  Narrow direct route (small
     id space, one launch): the row range a block takes is fixed by n alone,
     and the grid never exceeds two blocks per SM of 132, so it is
-    co-resident.  Partitioned route (large id space): an int32 region of
-    histogram + partition starts + two row arrays and a float region of
-    slice partials, for any int32 group count.  Shapes alone fix every count
-    (determinism)."""
+    co-resident.  Partitioned route (large id space, two launches): an int32
+    region of histogram + partition totals and starts and a float region of
+    row records + slice partials, for any int32 group count.  Shapes alone
+    fix every count (determinism)."""
     from repro_torch.kernels import _grouped_sum as gs
     q41 = gs.plan(96_000, 147, 1, True)            # SSB Q4.1
     q11 = gs.plan(112_000, 1, 1, False)            # SSB Q1.1
@@ -273,22 +273,67 @@ def test_grouped_sum_plan_sizes():
         p = gs.plan(5_000, g, c, counts, 132)
         assert gs.is_direct(g, c, counts) == p.direct == direct
         assert p.wide == (g * (c + counts) > gs.DIRECT_FLOATS)
-    # partitioned: many partitions, 2^20 cells
+    # partitioned: two launches; many partitions, 2^20 cells.  A partition
+    # holds the fewest ids, a power of two of 32 or more, that make
+    # PART_TARGET partitions at most, within the most whose warp partial
+    # fits WIDE_FLOATS (4,096 ids at one column, 2,048 at two or three, 128
+    # at 33).  The int32 region is the histogram (a row a partition block,
+    # at most PART_MAX_BLOCKS) + the totals + the starts; the float region
+    # the records (local id + values a row) and, with slices, their
+    # partials
+    assert [gs.part_width(1 << 30, c) for c in (1, 2, 3, 4, 7, 33)] == \
+        [4096, 2048, 2048, 1024, 1024, 128]
+    assert [gs.part_width(g, 2) for g in (7_169, 8_192, 8_193, 30_000,
+                                          200_000)] == [32, 32, 64, 128, 1024]
     big = gs.plan(4 << 20, 1 << 20, 1, True)
-    assert not big.direct and big.n_parts == 4096 and big.n_slices == 1
-    assert big.n_blocks * big.n_parts <= gs.MAX_HIST
-    assert big.int_words == (big.n_blocks * 4096 + 4097 + 2 * (4 << 20))
-    assert big.float_words == 1 << 21
-    # past 12288 partitions the block counters move to global memory; the
+    assert not big.direct and big.launches == 2 and q41.launches == 1
+    assert (big.n_parts, big.g_pad, big.n_slices) == (512, 1 << 20, 1)
+    assert big.n_blocks == gs.PART_MAX_BLOCKS
+    assert big.int_words == gs.PART_MAX_BLOCKS * 512 + 2 * 512 + 1
+    assert big.float_words == 2 * (4 << 20)                  # no partials
+    c2 = gs.plan(4 << 20, 1 << 20, 2, True)
+    assert (c2.int_words, c2.float_words) == (big.int_words, 3 * (4 << 20))
+    sort = gs.plan(4_000_000, 4_000_000, 1, False)          # 977 partitions
+    assert sort.n_parts == 977 and sort.n_blocks == gs.PART_MAX_BLOCKS
+    # a partition block sorts TILE_MAX rows at a time in shared memory, fewer
+    # where its counters and masks take more room (within PART_SMEM_TWO,
+    # two blocks an SM, while that leaves TILE_TWO rows); past TILE_MIN's
+    # limit (2,901 partitions at 1 column, 1,137 at 32) the counters move to
+    # global memory, a row a warp of rows within GLOBAL_HIST entries; the
     # id space is bounded by int32 alone
-    wide = gs.plan(4_000_000, 4_000_000, 1, False)
-    assert wide.n_parts == 15_625 and wide.g_pad == 15_625 * 256
-    assert wide.n_blocks * wide.n_parts <= gs.MAX_HIST
+    assert gs.part_tile(512, 1) == gs.part_tile(512, 2) == gs.TILE_MAX
+    assert gs.part_tile(977, 1) == 3_328                    # two an SM
+    assert gs.part_tile(1_194, 1) == 2_048
+    assert gs.part_tile(1_195, 1) == gs.TILE_MAX            # one an SM
+    assert gs.part_tile(2_600, 1) == 2_816
+    assert gs.part_tile(2_901, 1) == gs.TILE_MIN
+    assert gs.part_tile(2_902, 1) == 0
+    assert gs.part_tile(1_137, 32) == gs.TILE_MIN
+    assert gs.part_tile(1_138, 32) == 0
+    edge = gs.plan(100, 2_901 * 4096, 1, False)
+    assert edge.n_parts == 2_901 and edge.n_blocks == gs.PART_MAX_BLOCKS
+    assert gs.plan(100, 2_902 * 4096, 1, False).n_blocks == \
+        gs.GLOBAL_HIST // 2_902
+    many = gs.plan(1_000_000, 1_600_000, 32, True)          # 128-id parts
+    assert many.n_parts == 12_500 and many.g_pad == 12_500 * 128
+    assert many.n_blocks == gs.GLOBAL_HIST // 12_500 == 335
+    assert many.int_words == 335 * 12_500 + 2 * 12_500 + 1
     huge = gs.plan(1_000, (1 << 31) - 1, 1, False)
-    assert huge.n_blocks == 1 and huge.rows_per_block >= 1_000
-    # slices fill the card where partitions are few, not past the rows
-    assert gs.plan(1 << 20, 8192, 1, False).n_slices == 9
-    assert gs.plan(4_000_000, 300, 32, True).n_slices == 132
+    assert huge.n_parts == 1 << 19 and huge.n_blocks == 8
+    assert huge.n_slices == 1 and huge.float_words == 2_000
+    # slices where partitions are few and long: about SLICE_TARGET items,
+    # SLICE_ROWS rows a slice at least
+    cust = gs.plan(6_000_000, 30_000, 1, True)               # lo_custkey
+    assert (cust.n_parts, cust.n_slices) == (235, 2)
+    assert cust.float_words == 2 * 6_000_000 + 2 * 235 * 128 * 2
+    part = gs.plan(6_000_000, 200_000, 1, True)              # lo_partkey
+    assert (part.n_parts, part.n_slices) == (196, 2)
+    assert gs.plan(200_000, 200_000, 1, False).n_slices == 1  # its combiner
+    assert gs.plan(1 << 20, 8192, 1, False).n_slices == 1
+    assert gs.plan(2_000_000, 218, 32, True).n_slices == 38
+    assert gs.plan(4_000_000, 300, 32, True).n_slices == 27
+    assert gs.plan(1 << 30, 218, 32, True).n_slices == \
+        -(-gs.SLICE_TARGET // 7)
     assert gs.plan(10, 5_000, 2, True).n_slices == 1
     assert gs.plan(10, 4, gs.MAX_COLS, True).direct
     with pytest.raises(ValueError, match="value columns"):
@@ -322,7 +367,7 @@ def test_grouped_sum_three_routes(g, c, counts, route, n):
     assert (p.direct, p.wide) == (route != "partitioned", route == "wide")
     if route == "partitioned":
         assert p == gs.plan(n, g, c, counts)         # no cap needed
-        assert p.n_parts == -(-g // gs.PART_GROUPS)
+        assert p.n_parts == -(-g // gs.part_width(g, c + counts))
         return
     assert p.n_blocks <= (cap if p.wide else gs.TARGET_BLOCKS)
     assert p.n_blocks * p.rows_per_block >= n
