@@ -154,7 +154,22 @@ Phases (any failure raises and the script exits non-zero):
    seconds, a device's argument and peak bytes, FLOPs, HBM and wire bytes
    by kind, the three roofline terms, the bottleneck, the useful and
    roofline fractions).
-8. The ``kernels`` JSON line, the card line and, last,
+8. The port's examples (``examples/torch_*.py``), through the functions
+   their ``main``s call, with the launch counters set to 0 just before:
+   ``torch_etl_ssb`` over phase 3's SF1 data, every flow of ``BUILDERS``
+   (Q1.1, Q2.1, Q3.1, Q4.1, Q4.1s) on the four engines (8 splits), each
+   sink against its oracle (computed once a flow), no degradation, each
+   run's grouped sums on EXAMPLE_ROUTES (Q3.1's Aggregate on the wide
+   route), walls, rows/s and copies; ``torch_quickstart`` at SF1 (Theorem
+   1's plan from the card's activity times, the walls at its degree and
+   at 8 splits); ``torch_declarative_q41`` (streaming, optimize 2,
+   fused); ``torch_serve_lm`` at mixtral-8x7b's full width and
+   EXAMPLE_SERVE_LAYERS of 32 layers (8 requests, a flash launch a layer
+   a wave); ``torch_train_lm``'s ~100M model (8 heads of 64), 200 steps
+   with the restart at 100, the loss falling by more than 0.5 (a forward
+   launch, a remat one and a backward launch a layer a microbatch).  Its
+   launches are added to the kernels line's.
+9. The ``kernels`` JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; exits non-zero without one, and without the repository's
@@ -3397,6 +3412,224 @@ def phase_dryrun(dev: torch.device, procs: list) -> int:
             "flash_attention_backward": bwd_launches}
 
 
+# ---------------------------------------------------------------------------
+#  Phase 8: the port's examples
+# ---------------------------------------------------------------------------
+#: the splits of torch_etl_ssb's optimized and streaming engines (its own
+#: default)
+EXAMPLE_SPLITS = 8
+#: mixtral-8x7b's layers (of 32) torch_serve_lm serves at full width
+EXAMPLE_SERVE_LAYERS = 2
+#: each flow's grouped sums a run, by kernel and route: one an Aggregate
+#: (Q3.1's 2,646 ids with counts on the wide route; Q1.1's keyless sum on
+#: the segment sum)
+EXAMPLE_ROUTES = {"Q1.1": {"segment_sum/narrow": 1},
+                  "Q2.1": {"radix_groupby/narrow": 1},
+                  "Q3.1": {"radix_groupby/wide": 1},
+                  "Q4.1": {"radix_groupby/narrow": 1},
+                  "Q4.1s": {"radix_groupby/narrow": 1}}
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout, as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_log(msg: str = "") -> None:
+    """An example's own lines, indented under the phase's."""
+    for line in msg.strip("\n").split("\n"):
+        log(f"    {line}")
+
+
+def example_step_split(cfg, dev: torch.device, batch: int = 8,
+                       seq_len: int = 256, steps: int = 10) -> dict:
+    """Where a ``torch_train_lm`` step's time goes: the input pipeline
+    alone (``InputPipeline`` blocks made into model batches on the host,
+    ms a block) and the train step alone on one resident batch (fresh
+    seed-0 state, synchronised, ms a step after a warm-up step)."""
+    from repro_torch.data import InputPipeline, PipelineConfig, make_lm_batch_fn
+    from repro_torch.launch.train import build_state, to_device
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_step
+    pc = PipelineConfig(seq_len=seq_len, global_batch=batch,
+                        vocab_size=cfg.vocab_size,
+                        docs_per_window=max(batch * 16, 512), seed=0)
+    to_model = make_lm_batch_fn(cfg)
+    blocks = iter(InputPipeline(pc))
+    t0 = time.perf_counter()
+    host = [to_model(next(blocks)) for _ in range(steps)]
+    input_ms = (time.perf_counter() - t0) / steps * 1e3
+    params, opt = build_state(cfg, 0, dev)
+    step = make_train_step(cfg, OptConfig(total_steps=200, warmup_steps=20))
+    mb = to_device(host[0], dev)
+    params, opt, _ = step(params, opt, mb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt, _ = step(params, opt, mb)
+    torch.cuda.synchronize()
+    return {"input_ms": input_ms,
+            "step_ms": (time.perf_counter() - t0) / steps * 1e3}
+
+
+def phase_examples(data, dev: torch.device) -> dict:
+    """Phase 8: the functions the port's examples' ``main``s call, on the
+    card, from the launch counters set to 0: (a) ``torch_etl_ssb`` over
+    phase 3's SF1 data, every flow on the four engines, (b)
+    ``torch_quickstart`` (Theorem 1's plan from the card's activity times),
+    (c) ``torch_declarative_q41`` (streaming, optimize 2, fused), (d)
+    ``torch_serve_lm`` at mixtral-8x7b's full width and
+    EXAMPLE_SERVE_LAYERS layers, (e) ``torch_train_lm``'s 200 steps with
+    the restart, then where its step's time goes (``example_step_split``).
+    Each flow's oracle is computed once.  Returns each kernel's launches
+    in the examples (the step split's not counted)."""
+    from repro_torch.core import resolve_backend
+    from repro_torch.etl import BUILDERS
+    from repro_torch.kernels import launch_counts, reset_launches
+    t_phase = time.perf_counter()
+    rtol = resolve_backend("torch").oracle_rtol
+    rows = len(data.lineorder["lo_orderkey"])
+    t0 = time.perf_counter()
+    oracles = {q: build(data).oracle(data) for q, build in BUILDERS.items()}
+    log(f"  oracles of {len(oracles)} flows in "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.synchronize()
+    reset_launches()
+
+    log(f"  (a) torch_etl_ssb: {len(BUILDERS)} flows x 4 engines, SSB SF1, "
+        f"backend torch, {EXAMPLE_SPLITS} splits:")
+    t0 = time.perf_counter()
+    runs = load_example("torch_etl_ssb").evaluate(
+        data, splits=EXAMPLE_SPLITS, backend="torch", oracles=oracles,
+        log=example_log)
+    torch.cuda.synchronize()
+    n_sinks = 0
+    for qname, flow in runs.items():
+        for engine, run in flow["engines"].items():
+            label = f"{qname}/{engine}"
+            check_oracle(run["table"], oracles[qname], rtol, label)
+            if run["degradations"]:
+                raise AssertionError(f"{label}: {run['degradations']} "
+                                     f"degradations")
+            if run["launches"].get("hash_probe", 0) < 1:
+                raise AssertionError(f"{label}: hash_probe never launched")
+            if run["routes"] != EXAMPLE_ROUTES[qname]:
+                raise AssertionError(f"{label}: grouped sums "
+                                     f"{run['routes']}, expected "
+                                     f"{EXAMPLE_ROUTES[qname]}")
+            n_sinks += 1
+    log(f"  (a) {n_sinks} sinks within rtol {rtol} of their oracles, 0 "
+        f"degradations, Q3.1's Aggregate on the wide route; "
+        f"{time.perf_counter() - t0:.1f}s")
+    for qname, flow in runs.items():
+        log(f"    {qname}: " + "; ".join(
+            f"{e} wall={r['wall']:.4f}s rows/s={rows / r['wall']:.6g} "
+            f"copies={r['copies']} bytes_copied={r['bytes_copied']}"
+            for e, r in flow["engines"].items()))
+
+    log("  (b) torch_quickstart (SSB SF1 Q4.1, backend torch):")
+    t0 = time.perf_counter()
+    qs = load_example("torch_quickstart").quickstart(
+        data, backend="torch", expect=oracles["Q4.1"], log=example_log)
+    plan = qs["plan"]
+    log(f"  (b) Theorem 1 from the card's activity times: staggering "
+        f"{plan.staggering!r}, n {plan.n}, t0 {plan.t0:.6g}s, c "
+        f"{plan.c:.6g}s, lambda {plan.lam:.6g}s/row, N {plan.N}, m* "
+        f"{plan.m_star:.4f} -> degree {qs['degree']}; walls: "
+        + ", ".join(f"{k} {v:.4f}s" for k, v in qs["walls"].items())
+        + f"; activity times {qs['activity_times']}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    if not (1 <= qs["degree"] <= 64 and np.isfinite(plan.m_star)):
+        raise AssertionError(f"quickstart: degree {qs['degree']}, m* "
+                             f"{plan.m_star}")
+
+    log("  (c) torch_declarative_q41 (SSB SF1, backend torch, streaming, "
+        "optimize 2, fused, 8 splits):")
+    t0 = time.perf_counter()
+    res = load_example("torch_declarative_q41").run(
+        data, engine="streaming", optimize=2, backend="torch",
+        expect=oracles["Q4.1"], log=example_log)
+    check_oracle(res.table, oracles["Q4.1"], rtol, "declarative Q4.1")
+    if res.run.degradations:
+        raise AssertionError(f"declarative Q4.1: {res.run.degradations} "
+                             f"degradations")
+    log(f"  (c) wall={res.run.wall_time:.4f}s "
+        f"rows/s={rows / res.run.wall_time:.6g}; "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    sl = load_example("torch_serve_lm")
+    cfg = sl.model_config(EXAMPLE_SERVE_LAYERS)
+    log(f"  (d) torch_serve_lm: {cfg.name} at full width, "
+        f"{cfg.n_layers} of 32 layers, random weights from seed 0, "
+        f"{sl.TRAFFIC} in waves of {sl.BATCH}:")
+    t0 = time.perf_counter()
+    before = launch_counts()["flash_attention"]
+    torch.cuda.reset_peak_memory_stats()
+    served = sl.serve(cfg, device=str(dev), log=example_log)
+    torch.cuda.synchronize()
+    flash = launch_counts()["flash_attention"] - before
+    waves = -(-sl.TRAFFIC["n"] // sl.BATCH)
+    log(f"  (d) {served['tokens']} tokens, {served['tokens_per_s']:.1f} "
+        f"tok/s, prefill {served['stats']['prefill_s']:.4f}s, decode "
+        f"{served['stats']['decode_s']:.4f}s; flash launches {flash}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+        f"{time.perf_counter() - t0:.1f}s (weights made included)")
+    if flash != cfg.n_layers * waves:
+        raise AssertionError(f"serve_lm: flash launched {flash} times, "
+                             f"expected {cfg.n_layers} layers x {waves} "
+                             f"prefills")
+    if [len(r.out_tokens) for r in served["done"]] != \
+            [sl.TRAFFIC["max_new"]] * sl.TRAFFIC["n"]:
+        raise AssertionError("serve_lm: not every request got its tokens")
+    del served
+    torch.cuda.empty_cache()
+
+    tl = load_example("torch_train_lm")
+    cfg = tl.model_config()
+    log(f"  (e) torch_train_lm: {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, vocab "
+        f"{cfg.vocab_size}, grad_accum {cfg.grad_accum}; 200 steps of 8 x "
+        f"256 with the restart at 100:")
+    t0 = time.perf_counter()
+    before = launch_counts()
+    trained = tl.train(cfg, device=str(dev), log=example_log)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    steps = len(trained["losses"])
+    step_ms = statistics.median(trained["step_seconds"]) * 1e3
+    fwd = after["flash_attention"] - before["flash_attention"]
+    bwd = (after["flash_attention_backward"]
+           - before["flash_attention_backward"])
+    micro = steps * cfg.grad_accum * cfg.n_layers
+    log(f"  (e) loss {trained['first']:.4f} -> {trained['last']:.4f}, "
+        f"resumed from step {trained['resumed_from']}; median step "
+        f"{step_ms:.2f} ms, {8 * 256 / step_ms * 1e3:.0f} tok/s; phase-2 "
+        f"{trained['tokens_per_s']:.0f} tok/s (checkpoints included); "
+        f"flash launches {fwd} forward, {bwd} backward; "
+        f"{time.perf_counter() - t0:.1f}s")
+    launched = launch_counts()         # the examples' own, not the split's
+    split = example_step_split(cfg, dev)
+    log(f"  (e) step split: the input pipeline alone "
+        f"{split['input_ms']:.2f} ms a block (host), the train step alone "
+        f"{split['step_ms']:.2f} ms on a resident batch (synchronised)")
+    if not trained["last"] < trained["first"] - 0.5:
+        raise AssertionError(f"train_lm: loss {trained['first']} -> "
+                             f"{trained['last']}, not down by 0.5")
+    if trained["resumed_from"] != 100 or steps != 200:
+        raise AssertionError(f"train_lm: {steps} steps, resumed from "
+                             f"{trained['resumed_from']}")
+    if fwd != 2 * micro or bwd != micro:
+        raise AssertionError(f"train_lm: flash launched {fwd} / {bwd} "
+                             f"times, expected {2 * micro} / {micro}")
+    log(f"examples phase wall: {time.perf_counter() - t_phase:.1f}s")
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3486,7 +3719,6 @@ def main() -> int:
         launches[k] += v
     if args.profile:
         profile_q41(data)
-    del data
     log("Aggregate wider than one grouped-sum launch:")
     phase_wide_aggregate(rng)
 
@@ -3530,6 +3762,15 @@ def main() -> int:
     log("LM dry run (meta tensors, H100 data-sheet roofline):")
     dry_procs = start_dryrun_cells()
     for name, n in phase_dryrun(gen.device, dry_procs).items():
+        launches[name] += n
+
+    # ---- phase 8: the port's examples, through the functions their main()s
+    # call, over phase 3's SF1 data and at full model width
+    log("the port's examples (examples/torch_*.py):")
+    torch.cuda.empty_cache()
+    examples = phase_examples(data, gen.device)
+    del data
+    for name, n in examples.items():
         launches[name] += n
 
     # ---- result lines
@@ -3590,6 +3831,16 @@ def main() -> int:
                 "launch a layer a microbatch) and, forward only, one "
                 "4 x 2048 prefill; and the dry-run phase's real stablelm-3b "
                 "step (256 forward, 128 backward)")
+        if examples[name]:
+            row["examples_launches"] = examples[name]
+            row["examples_note"] = (
+                "launches include phase 8's (examples/torch_*.py): "
+                "torch_etl_ssb's 5 SSB SF1 flows on 4 engines, "
+                "torch_quickstart's 4 Q4.1 runs, torch_declarative_q41's "
+                "streaming run; torch_serve_lm's mixtral-8x7b prefills (2 "
+                "layers x 2 waves); torch_train_lm's 200 steps (8 layers x "
+                "2 microbatches: a forward launch, one in the remat "
+                "recompute and a backward launch each)")
         if name in trained:
             row["train_note"] = (
                 f"launches include {trained[name][0]} from training (two "

@@ -22,7 +22,10 @@
 # Each package has ops.py (the wrapper: the kernel on a CUDA tensor, the
 # plain version on a CPU tensor, a launch counter) and ref.py (the plain
 # torch version the CPU tests and chip_smoke.py hold the kernel against).
-# _cuda.py builds csrc/*.cu with nvcc at first use and counts launches.
-from ._cuda import KernelLibraryError, launch_counts, reset_launches
+# _cuda.py builds csrc/*.cu with nvcc at first use and counts launches (the
+# grouped sums' also by route).
+from ._cuda import (KernelLibraryError, launch_counts, reset_launches,
+                    route_counts)
 
-__all__ = ["KernelLibraryError", "launch_counts", "reset_launches"]
+__all__ = ["KernelLibraryError", "launch_counts", "reset_launches",
+           "route_counts"]

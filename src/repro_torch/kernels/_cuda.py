@@ -98,6 +98,9 @@ LAUNCHES: Dict[str, int] = {"hash_probe": 0, "radix_groupby": 0,
                             "segment_sum": 0, "flash_attention": 0,
                             "flash_attention_backward": 0, "mamba_scan": 0,
                             "mamba_scan_backward": 0}
+#: the grouped sums' launches by kernel and route, as
+#: ``"radix_groupby/wide"``: counted with the launch (``count_route``)
+ROUTES: Dict[str, int] = {}
 _count_lock = threading.Lock()
 
 
@@ -106,15 +109,29 @@ def count_launch(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+def count_route(key: str) -> None:
+    with _count_lock:
+        ROUTES[key] = ROUTES.get(key, 0) + 1
+
+
 def reset_launches() -> None:
+    """Set every launch and route count to 0."""
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        ROUTES.clear()
 
 
 def launch_counts() -> Dict[str, int]:
     with _count_lock:
         return dict(LAUNCHES)
+
+
+def route_counts() -> Dict[str, int]:
+    """The grouped sums' launches by ``"<kernel>/<route>"`` (routes
+    ``narrow``, ``wide``, ``partitioned``: ``kernels/_grouped_sum.py``)."""
+    with _count_lock:
+        return dict(ROUTES)
 
 
 def _nvcc() -> str:

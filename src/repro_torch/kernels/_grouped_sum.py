@@ -108,6 +108,13 @@ class Plan(NamedTuple):
         """Device kernels a call launches."""
         return 1 if self.direct else 2
 
+    @property
+    def route(self) -> str:
+        """``narrow``, ``wide`` or ``partitioned``."""
+        if not self.direct:
+            return "partitioned"
+        return "wide" if self.wide else "narrow"
+
 
 def part_width(n_groups: int, cols: int) -> int:
     """Ids a partition holds (``part_log_width``): the fewest, a power of
@@ -327,6 +334,7 @@ def _launch_batch(name: str, ids: torch.Tensor, values: torch.Tensor,
     entry = getattr(_cuda.library(), f"repro_{name}")
     with _cuda.device_guard(ids):
         _cuda.count_launch(name)
+        _cuda.count_route(f"{name}/{p.route}")
         rc = entry(ids.data_ptr(), values.data_ptr(), values.stride(0), n, c,
                    n_groups, p.rows_per_block, p.n_blocks, p.n_slices, iws,
                    fws, *out, stream)

@@ -340,6 +340,23 @@ def test_grouped_sum_plan_sizes():
         gs.plan(10, 4, gs.MAX_COLS + 1, False)
 
 
+def test_route_counts_reset_with_the_launch_counts():
+    """``route_counts`` tallies the grouped sums' launches by kernel and
+    route (the wrappers count one where they count the launch) and
+    ``reset_launches`` sets them to 0 with the launch counts."""
+    from repro_torch.kernels import (_cuda, launch_counts, reset_launches,
+                                     route_counts)
+    reset_launches()
+    _cuda.count_route("radix_groupby/wide")
+    _cuda.count_route("radix_groupby/wide")
+    _cuda.count_route("segment_sum/narrow")
+    assert route_counts() == {"radix_groupby/wide": 2,
+                              "segment_sum/narrow": 1}
+    reset_launches()
+    assert route_counts() == {}
+    assert set(launch_counts().values()) == {0}
+
+
 # Both sides of each route boundary: the narrow direct route (a warp's
 # partial of groups x cols within 1,536 floats), the wide one (within 7,168,
 # Hopper's opt-in shared memory) and the partitioned one, for counts and
@@ -365,6 +382,7 @@ def test_grouped_sum_three_routes(g, c, counts, route, n):
     cap = 132
     p = gs.plan(n, g, c, counts, cap)
     assert (p.direct, p.wide) == (route != "partitioned", route == "wide")
+    assert p.route == route
     if route == "partitioned":
         assert p == gs.plan(n, g, c, counts)         # no cap needed
         assert p.n_parts == -(-g // gs.part_width(g, c + counts))
