@@ -18,7 +18,9 @@ Phases (any failure raises and the script exits non-zero):
    cores and fp32 in FMAs, and in bf16 at mixtral-8x7b's and grok-1's
    prefill shapes, llama-3.2-vision-11b's cross-attention (2048 queries
    against 1601 vision tokens, non-causal) and hubert-xlarge's encoder
-   (non-causal, hd 80) too, with their device times from CUDA events
+   (non-causal, hd 80) and the dense configs' prefills at hd 128
+   (qwen2.5-32b's 8 kv heads at G 5, qwen2-72b's at G 8, granite-20b's
+   one kv head at G 48) too, with their device times from CUDA events
    around 20 launches back to back; the scan on bf16 and fp32
    delta/x, with its lane splits timed) plus small cases for the options
    those paths do not use, twice (bit-identical), with its median time
@@ -39,7 +41,9 @@ Phases (any failure raises and the script exits non-zero):
    lo_custkey, the part-keyed combiner and the sort route's 4M keys.  The
    two backward kernels (training's gradients) at the trained models'
    microbatch shapes (flash: stablelm-3b's [2, 2048, 32, 80] bf16, causal,
-   beside scaled_dot_product_attention's forward + backward; the scan:
+   beside scaled_dot_product_attention's forward + backward, and the
+   GQA microbatches of mixtral-8x7b, qwen2.5-32b (G 5) and granite-20b
+   (MQA: 1 kv head, G 48, the dK/dV kernel's grid 32 blocks); the scan:
    falcon-mamba-7b's Bt 1, T 2048, d 8192, N 16 with bf16 delta/x, each of
    its four launches timed) and at the card tests' shapes, each against
    its plain version from the forward kernel's own output and log-sum-exp
@@ -106,7 +110,12 @@ Phases (any failure raises and the script exits non-zero):
    K/V against flash's cross-attention).  hubert encodes 8 clips of 2048
    stub frames in waves of 4 through ``forward_prefill``, twice (logits
    bit-identical, 48 flash launches a wave); its route check compares the
-   hidden state at every position.
+   hidden state at every position.  Then the dense configs no earlier
+   phase runs, as stablelm-3b is served, at full width and cut in depth
+   (DENSE_SERVE): qwen2.5-32b (QKV bias, G 5; its plain route attends in
+   query chunks of 1024) at 16 of 64 layers, qwen2-72b (QKV bias, G 8, a
+   152,064-token vocabulary) at 8 of 80 and granite-20b (MQA, a gelu
+   MLP) at 20 of 52, each route check at 2 layers.
 5. LM training path.  Gradient route checks at full width and 2 layers
    of stablelm-3b and falcon-mamba-7b: one microbatch through
    ``forward_train`` and its backward on the kernel route (the kernels'
@@ -116,13 +125,24 @@ Phases (any failure raises and the script exits non-zero):
    rule.  Then stablelm-3b whole (2.795e9 parameters, fp32 params, grads
    and AdamW moments: 41.7 GiB) and falcon-mamba-7b at 8 of 64 layers
    through ``launch.train.train_loop``, twice from seed 0: finite losses,
-   step 0 within 10% of ln(vocab), the forward kernel launched twice a
+   step 0 within 10% of ln(vocab) of the initialised model's expected
+   loss (``initial_loss``), the forward kernel launched twice a
    layer a microbatch (forward and remat recompute) and the backward
    kernel once, the second run's losses within RERUN_RTOL (and whether
    they are bit-identical); step ms, tokens/s, 6·N·tokens / step time
    against the bf16 peak, peak memory, a microbatch's forward/backward
    split and, at one layer's shape, the forward kernel, the backward
-   kernel through the Function and the plain backward.  Then resume at
+   kernel through the Function and the plain backward.  Then
+   TRAIN's other configs, each at full width, cut in depth, its route
+   check at 2 layers (grok-1 and mixtral with their largest expert loads
+   against the capacity) and the same two ``train_loop`` runs of 2 steps:
+   qwen2.5-32b, qwen2-72b with its bf16 accumulator, granite-20b,
+   mixtral-8x7b and grok-1-314b with bf16 parameters and AdamW moments;
+   grok-1's run once more on the plain attention route
+   (``plain_witness``): its losses, step 1's after the first bf16 AdamW
+   update included, within BF16_MARGIN of the kernel route's.
+   qwen2-72b at ACCUM_DEPTH layers with its bf16 accumulator against an
+   fp32 one from the same seed: the losses' gap, logged.  Then resume at
    the stablelm smoke config: 2 steps, a checkpoint, 2 resumed steps
    equal to 4 straight ones.  ``--profile``: one stablelm-3b train step
    under the profiler.
@@ -986,6 +1006,17 @@ def phase_flash_attention(gen) -> dict:
     main["hubert_prefill"] = _flash_case(
         "hubert-xlarge encoder, bf16 tensor cores", gen, 4, 2048, 2048, 16,
         1, 80, False, 0, 0.0, bf16, library=True, device=True)
+    # the dense configs served in phase 4 at hd 128: qwen2.5-32b (8 kv
+    # heads, G 5), qwen2-72b (8 kv heads, G 8) and granite-20b (MQA: 1 kv
+    # head, G 48; the grid folds (b, kh, g), so 4 x 48 rows of query tiles
+    # still fill the card)
+    for key, arch, kh, G in (("qwen25_prefill", "qwen2.5-32b", 8, 5),
+                             ("qwen2_prefill", "qwen2-72b", 8, 8),
+                             ("granite_prefill", "granite-20b", 1, 48)):
+        main[key] = _flash_case(
+            f"{arch} prefill (Kh {kh}, G {G}), bf16 tensor cores", gen, 4,
+            2048, 2048, kh, G, 128, True, 0, 0.0, bf16, library=True,
+            device=True)
     # the options that path does not use: GQA, window, softcap, ragged
     # lengths, Sq != Skv, rows with no allowed key, other head dims
     for args in (("gqa+window+softcap", 2, 300, 300, 2, 4, 128, True, 100,
@@ -1361,6 +1392,18 @@ def phase_flash_backward(gen) -> dict:
     main["gqa_train"] = _flash_bwd_case(
         "mixtral-8x7b train microbatch (G 4, hd 128, window 4096), bf16 "
         "tensor cores", gen, 2, 4096, 4096, 8, 4, 128, True, 4096, 0.0, bf16,
+        library=True, device=True)
+    # phase 5's dense microbatches (one sequence of 2048): qwen2.5-32b at
+    # G 5, and granite-20b under MQA, where the dK/dV kernel's grid is
+    # (B x Kh, Skv / 64) = 32 blocks for 132 SMs, each walking all 48
+    # query heads
+    main["g5_train"] = _flash_bwd_case(
+        "qwen2.5-32b train microbatch (Kh 8, G 5, hd 128), bf16 tensor "
+        "cores", gen, 1, 2048, 2048, 8, 5, 128, True, 0, 0.0, bf16,
+        library=True, device=True)
+    main["mqa_train"] = _flash_bwd_case(
+        "granite-20b train microbatch (MQA: Kh 1, G 48, hd 128), bf16 "
+        "tensor cores", gen, 1, 2048, 2048, 1, 48, 128, True, 0, 0.0, bf16,
         library=True, device=True)
     for args in (("gqa+window+softcap hd128", 2, 257, 257, 2, 2, 128, True,
                   100, 30.0, bf16),
@@ -2242,6 +2285,12 @@ TF_TOL = (0.05, 0.05)
 #: network, not the kernel
 BF16_MARGIN = 1e-2
 SERVE = dict(requests=8, batch=4, prompt_len=2048, max_new=32)
+#: the dense configs served at full width, each cut to its first layers:
+#: qwen2.5-32b 16 of 64 layers, qwen2-72b 8 of 80, granite-20b 20 of 52
+#: (8.2-9.5B fp32 parameters, 30.5-35.4 GiB).  24, 12 and 32 layers
+#: (12.7-13.3B) fit too, peaking at 55.4-65.5 GiB on an NVIDIA H100 80GB
+#: HBM3 at 700 W, where they took the whole script past 9 minutes
+DENSE_SERVE = {"qwen2.5-32b": 16, "qwen2-72b": 8, "granite-20b": 20}
 
 
 def _gap(got: torch.Tensor, want: torch.Tensor):
@@ -2418,6 +2467,7 @@ def serve_model(arch: str, kernel: str, ref_depth: int,
     from repro_torch.launch.serve import BatchedServer, make_requests
     from repro_torch.models import transformer as tf
     cfg, params = make_model(arch, dev, depth)
+    card = card_line()
     server = BatchedServer(cfg, params=params, batch=SERVE["batch"],
                            device=str(dev))
     waves = -(-SERVE["requests"] // SERVE["batch"])
@@ -2449,7 +2499,8 @@ def serve_model(arch: str, kernel: str, ref_depth: int,
             f"prefill {st['prefill_s'] / st['prefills'] * 1e3:.1f} ms a wave "
             f"of {SERVE['batch']}x{SERVE['prompt_len']}; decode "
             f"{st['decode_s'] / st['decode_steps'] * 1e3:.2f} ms a step "
-            f"({st['decode_steps']:.0f} steps); {kernel} launches={launched}")
+            f"({st['decode_steps']:.0f} steps); {kernel} launches={launched}"
+            f"; card: {card}")
         outputs.append(toks)
     torch.cuda.synchronize()
     launches = launch_counts()[kernel]
@@ -2705,13 +2756,44 @@ def serve_encoder(dev: torch.device, profile: bool = False) -> int:
 #: the trained models: stablelm-3b whole (global batch 8 x 2048 in the
 #: config's 4 microbatches, 4 steps); falcon-mamba-7b at 8 of its 64 layers
 #: (its whole 117 GB of state does not fit the card; 2 x 2048 in 2
-#: microbatches, 3 steps).  Tokens from ``InputPipeline``, seed 0.
+#: microbatches, 3 steps).  Then, at full width and 2 steps, each with its
+#: config's own microbatches of one sequence, cut in depth so that the
+#: parameters, the accumulator and the AdamW moments fit the card:
+#: qwen2.5-32b at 4 of 64 layers, qwen2-72b at 2 of 80 (a bf16
+#: accumulator), granite-20b at 6 of 52, mixtral-8x7b at 2 of 32 and
+#: grok-1-314b at 1 of 64 (bf16 parameters and moments).  Tokens from
+#: ``InputPipeline``, seed 0.  ``plain_witness``: the run once more on
+#: the plain attention route.
 TRAIN = {"stablelm-3b": dict(depth=0, batch=8, grad_accum=4, steps=4),
-         "falcon-mamba-7b": dict(depth=8, batch=2, grad_accum=2, steps=3)}
+         "falcon-mamba-7b": dict(depth=8, batch=2, grad_accum=2, steps=3),
+         "qwen2.5-32b": dict(depth=4, batch=16, grad_accum=16, steps=2),
+         "qwen2-72b": dict(depth=2, batch=16, grad_accum=16, steps=2),
+         "granite-20b": dict(depth=6, batch=8, grad_accum=8, steps=2),
+         "mixtral-8x7b": dict(depth=2, batch=8, grad_accum=8, steps=2),
+         "grok-1-314b": dict(depth=1, batch=16, grad_accum=16, steps=2,
+                             plain_witness=True)}
+#: qwen2-72b's bf16 accumulator against an fp32 one from the same seed, at
+#: this depth: at phase 5's 2 layers the fp32 accumulator's 2 more bytes a
+#: parameter (7.9 GiB) would come on top of the bf16 run's peak of 63.8 GiB
+#: on an NVIDIA H100 80GB HBM3 at 700 W, past the 70 GiB the others keep
+#: under
+ACCUM_DEPTH = 1
 TRAIN_SEQ = 2048
-#: step 0's loss against ln(vocab): random weights scaled 0.02 give
-#: near-uniform logits
+#: step 0's loss against the initialised model's expected loss, within
+#: this share of ln(vocab): the final norm (ones at init) gives each
+#: position unit rms and head_w is drawn N(0, s^2), s its init scale
+#: (0.02), so the logits are about N(0, s^2 * d_model) and the expected
+#: loss ln(vocab) + s^2 * d_model / 2 (near-uniform at stablelm-3b's
+#: d_model 2560: +0.51; qwen2-72b's 8192: +1.64)
 LOSS0_RTOL = 0.10
+
+
+def initial_loss(cfg) -> float:
+    """The expected loss of ``cfg``'s initialised model (LOSS0_RTOL), with
+    head_w's init scale from the model's parameter definitions."""
+    from repro_torch.models import transformer as tf
+    s = {path: scale for path, _, _, scale in tf._top_defs(cfg)}["head_w"]
+    return float(np.log(cfg.vocab_size)) + s ** 2 * cfg.d_model / 2
 #: a second run from the same seed: every loss within this relative gap
 #: (the step is deterministic unless an atomic adds in another order)
 RERUN_RTOL = 1e-3
@@ -2723,21 +2805,49 @@ RESUME_ATOL = 1e-6
 
 def _grad_norms(cfg, params, batch):
     """(loss, per-leaf gradient norms, launches of the flash and scan
-    forward kernels, launches of their backward kernels) of one
-    ``forward_train`` + backward."""
+    forward kernels, launches of their backward kernels, the leaves'
+    names) of one ``forward_train`` + backward.  Each layer of a stacked
+    leaf is a leaf of its own, as ``train_step`` binds them, whose
+    gradient a hook squares, sums and drops as it arrives: no gradient
+    tree lives beside the parameters (grok-1's two layers hold 23 GB of
+    bf16 parameters)."""
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.models import transformer as tf
-    from repro_torch.train.optimizer import tree_leaves
-    leaves = tree_leaves(params)
+    from repro_torch.train.optimizer import square_sum
+    names, sums, handles = [], [], []
+
+    def bind(p, slot):
+        leaf = p.detach().requires_grad_(True)
+
+        def take(t):
+            sums[slot] += square_sum(t.grad)
+            t.grad = None
+        handles.append(leaf.register_post_accumulate_grad_hook(take))
+        return leaf
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}.{k}" if path else k)
+                    for k, v in t.items()}
+        names.append(path)
+        sums.append(torch.zeros((), dtype=torch.float32, device=t.device))
+        if path.startswith("blocks."):
+            return [bind(t[i], len(sums) - 1) for i in range(t.shape[0])]
+        return bind(t, len(sums) - 1)
+    leaves = walk(params, "")
     reset_launches()
-    loss, _ = tf.forward_train(params, batch, cfg)
-    grads = torch.autograd.grad(loss, leaves)
+    try:
+        loss, _ = tf.forward_train(leaves, batch, cfg)
+        loss.backward()
+    finally:
+        for h in handles:
+            h.remove()
     torch.cuda.synchronize()
     counts = launch_counts()
-    norms = torch.stack([g.float().norm() for g in grads]).cpu()
+    norms = torch.stack(sums).sqrt().cpu()
     return (loss.item(), norms, counts["flash_attention"],
             counts["mamba_scan"], counts["flash_attention_backward"]
-            + counts["mamba_scan_backward"])
+            + counts["mamba_scan_backward"], names)
 
 
 def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
@@ -2752,7 +2862,6 @@ def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
     from repro_torch.data import (InputPipeline, PipelineConfig,
                                   make_lm_batch_fn)
     from repro_torch.launch.train import to_device
-    from repro_torch.train.optimizer import tree_leaves
     spec = TRAIN[arch]
     cfg, params = make_model(arch, dev, depth)
     rows = spec["batch"] // spec["grad_accum"]
@@ -2760,16 +2869,15 @@ def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
         seq_len=TRAIN_SEQ, global_batch=rows, vocab_size=cfg.vocab_size,
         docs_per_window=512, seed=0))))
     batch = to_device(make_lm_batch_fn(cfg)(blk), dev)
-    for t in tree_leaves(params):
-        t.requires_grad_(True)
     plain = dict(attn_impl="reference", ssm_impl="reference")
     truth = _grad_norms(cfg.replace(compute_dtype="float32", **plain),
                         params, batch)
-    kernel = _grad_norms(cfg, params, batch)
+    with expert_loads() as loads:
+        kernel = _grad_norms(cfg, params, batch)
     ref = _grad_norms(cfg.replace(**plain), params, batch)
     launched, backward = kernel[2] + kernel[3], kernel[4]
     if launched != 2 * depth or backward != depth or sum(
-            ref[2:] + truth[2:]):
+            ref[2:5] + truth[2:5]):
         raise AssertionError(f"{arch}: the kernel route launched {launched} "
                              f"forward and {backward} backward kernels, "
                              f"expected {2 * depth} (a layer, forward and "
@@ -2791,11 +2899,14 @@ def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
         f"rel gaps loss {k_loss:.3g} global {k_glob:.3g} worst leaf "
         f"{float(k_leaf.max()):.3g}; {cfg.compute_dtype} plain route "
         f"{p_loss:.3g} / {p_glob:.3g} / {float(p_leaf.max()):.3g}; "
-        f"{len(k_leaf)} leaves; kernel launches {launched} forward, "
-        f"{backward} backward (rule: kernel <= 2 x plain + {BF16_MARGIN})")
+        f"{len(k_leaf)} leaves, nearest the rule {kernel[5][worst]} "
+        f"({float(k_leaf[worst]):.3g} against {float(p_leaf[worst]):.3g}); "
+        f"kernel launches {launched} forward, "
+        f"{backward} backward (rule: kernel <= 2 x plain + {BF16_MARGIN})"
+        f"{f'; {loads.summary()}' if loads.layers else ''}")
     bad = [(name, k, p) for name, k, p in (
         ("loss", k_loss, p_loss), ("global grad norm", k_glob, p_glob),
-        (f"leaf {worst} grad norm", float(k_leaf[worst]),
+        (f"{kernel[5][worst]} grad norm", float(k_leaf[worst]),
          float(p_leaf[worst]))) if k > 2 * p + BF16_MARGIN]
     if bad:
         raise AssertionError(f"{arch}: kernel route beyond the plain "
@@ -2817,16 +2928,20 @@ def _function_times(arch: str, cfg, dev: torch.device) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     bf16 = torch.bfloat16
-    if arch == "stablelm-3b":
+    flash = cfg.family != "ssm"
+    if flash:
         kh, hd = cfg.n_kv_heads, cfg.hd
         G = cfg.n_heads // kh
         ins = [torch.randn(s, generator=gen, device=dev).to(bf16)
                for s in ((rows, S, kh, G, hd), (rows, S, kh, hd),
                          (rows, S, kh, hd))]
-        fwd = lambda *a: flash_attention(*a, causal=True, impl="cuda")
-        plain = lambda saved, g: flash_attention_backward_ref(
-            *saved, g, causal=True)
-        shape = f"[{rows}, {S}, {kh}, {G}, {hd}] bf16"
+        kw = dict(causal=True, window=cfg.sliding_window,
+                  softcap=cfg.logit_softcap)
+        fwd = lambda *a: flash_attention(*a, impl="cuda", **kw)
+        plain = lambda saved, g: flash_attention_backward_ref(*saved, g,
+                                                              **kw)
+        shape = (f"[{rows}, {S}, {kh}, {G}, {hd}] bf16, window "
+                 f"{cfg.sliding_window}, softcap {cfg.logit_softcap}")
     else:
         d, N = cfg.d_inner, cfg.ssm_state
         ins = list(_scan_inputs(gen, rows, S, d, N, True, bf16))
@@ -2845,7 +2960,7 @@ def _function_times(arch: str, cfg, dev: torch.device) -> dict:
     bwd_ms = time_ms(backward, iters=5, warmup=1)
     saved = [t.detach() for t in out.grad_fn.saved_tensors]
     plain_ms = time_ms(lambda: plain(saved, g), iters=3, warmup=1)
-    log(f"  {arch}: {'flash' if arch == 'stablelm-3b' else 'scan'} at one "
+    log(f"  {arch}: {'flash' if flash else 'scan'} at one "
         f"layer's microbatch ({shape}): forward kernel {fwd_ms:.4f} ms, "
         f"the Function's backward (the backward kernel) {bwd_ms:.4f} ms, "
         f"the plain backward {plain_ms:.4f} ms")
@@ -2882,14 +2997,15 @@ def _step_breakdown(cfg, params, batch) -> dict:
 
 def train_model(arch: str, dev: torch.device, profile: bool = False):
     """``arch`` (TRAIN) through ``launch.train.train_loop`` twice from seed
-    0: finite losses, step 0 near ln(vocab), the forward kernel launched
+    0: finite losses, step 0 near the initialised model's expected loss
+    (``initial_loss``), the forward kernel launched
     once a layer a microbatch in the forward and once more in the remat
     recompute, the backward kernel once a layer a microbatch, the second
     run's losses within RERUN_RTOL (and whether they are bit-identical).
     Prints step ms, tokens/s, 6·N·tokens / step time against the bf16
-    peak and the peak memory; then the forward/backward split of a
-    microbatch and the Function's kernels and the plain backward at one
-    layer's shape.  Returns (the forward kernel's launches in the two
+    peak (N the parameters a token runs through) and the peak memory;
+    then the forward/backward split of a microbatch and the Function's
+    kernels and the plain backward at one layer's shape.  Returns (the forward kernel's launches in the two
     runs, the backward kernel's, the Function times)."""
     from repro_torch.configs import get_config
     from repro_torch.data import (InputPipeline, PipelineConfig,
@@ -2901,19 +3017,25 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
     full = get_config(arch)
     cfg = full.replace(n_layers=spec["depth"] or full.n_layers,
                        grad_accum=spec["grad_accum"])
-    kernel = "flash_attention" if cfg.family == "dense" else "mamba_scan"
+    kernel = "mamba_scan" if cfg.family == "ssm" else "flash_attention"
     backward = f"{kernel}_backward"
-    n = tf.param_count(cfg)
+    n, n_active = tf.param_count(cfg), cfg.active_param_count()
     tokens = spec["batch"] * TRAIN_SEQ
     per_step = cfg.n_layers * cfg.grad_accum * 2
     depth = (f"{cfg.n_layers} of {full.n_layers} layers, " if spec["depth"]
              else "whole, ")
-    log(f"{arch}: training {depth}{n / 1e9:.3f}B {cfg.param_dtype} params "
-        f"(+ grads, + AdamW m/v in {cfg.opt_state_dtype}: "
-        f"{n * 16 / 2**30:.1f} GiB), compute {cfg.compute_dtype}, remat "
-        f"{cfg.remat_policy}, global batch {spec['batch']} x {TRAIN_SEQ} in "
-        f"{cfg.grad_accum} microbatches, {spec['steps']} steps; card: "
-        f"{card_line()}")
+    size = lambda name: torch.empty((), dtype=getattr(torch, name)
+                                    ).element_size()
+    acc = cfg.grad_accum_dtype or cfg.opt_state_dtype
+    state = n * (size(cfg.param_dtype) + size(acc)
+                 + 2 * size(cfg.opt_state_dtype))
+    active = (f", {n_active / 1e9:.3f}B a token" if n_active != n else "")
+    log(f"{arch}: training {depth}{n / 1e9:.3f}B {cfg.param_dtype} params"
+        f"{active} (+ a {acc} accumulator, + AdamW m/v in "
+        f"{cfg.opt_state_dtype}: {state / 2**30:.1f} GiB), compute "
+        f"{cfg.compute_dtype}, remat {cfg.remat_policy}, global batch "
+        f"{spec['batch']} x {TRAIN_SEQ} in {cfg.grad_accum} microbatches, "
+        f"{spec['steps']} steps; card: {card_line()}")
     runs, launches, bwd_launches, res = [], 0, 0, None
     torch.cuda.synchronize()
     reset_launches()
@@ -2946,20 +3068,23 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
                                  f"x {spec['steps']}")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{arch}#{attempt}: losses {losses}")
-        ln_v = float(np.log(cfg.vocab_size))
-        if abs(losses[0] - ln_v) > LOSS0_RTOL * ln_v:
+        ln_v, loss0 = float(np.log(cfg.vocab_size)), initial_loss(cfg)
+        if abs(losses[0] - loss0) > LOSS0_RTOL * ln_v:
             raise AssertionError(f"{arch}#{attempt}: step 0's loss "
                                  f"{losses[0]:.4f} is not within "
                                  f"{LOSS0_RTOL:.0%} of ln({cfg.vocab_size})"
-                                 f" = {ln_v:.4f}")
+                                 f" = {ln_v:.4f} of the expected "
+                                 f"{loss0:.4f}")
         steady = statistics.median(step_s[1:])
         log(f"  {arch}#{attempt}: {spec['steps']} steps in {wall:.2f}s "
             f"(set-up included); losses "
-            f"{', '.join(f'{x:.6f}' for x in losses)} (ln V = {ln_v:.4f}); "
+            f"{', '.join(f'{x:.6f}' for x in losses)} (ln V = {ln_v:.4f}, "
+            f"expected at step 0 {loss0:.4f}); "
             f"step ms {', '.join(f'{s * 1e3:.1f}' for s in step_s)}; "
             f"steady step {steady * 1e3:.1f} ms, {tokens / steady:.0f} "
-            f"tok/s, 6*N*tokens/step = {6 * n * tokens / steady / 1e12:.1f} "
-            f"TFLOP/s = {6 * n * tokens / steady / PEAK_BF16_S:.4f} of the "
+            f"tok/s, 6*N*tokens/step = "
+            f"{6 * n_active * tokens / steady / 1e12:.1f} TFLOP/s = "
+            f"{6 * n_active * tokens / steady / PEAK_BF16_S:.4f} of the "
             f"989 TFLOP/s bf16 peak; {kernel} launches={launched} "
             f"({per_step} a step), {backward} launches={launched_bwd} "
             f"({per_step // 2} a step); peak device memory "
@@ -3004,6 +3129,8 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
         f"{steady * 1e3:.1f} ms step, the rest AdamW and the host")
     del params, batch
     torch.cuda.empty_cache()
+    if spec.get("plain_witness"):
+        plain_witness(arch, cfg, runs[0], dev)
     fn = _function_times(arch, cfg, dev)
     calls = cfg.n_layers * cfg.grad_accum
     log(f"  {arch}: the backward kernel, {calls} calls a step: "
@@ -3018,6 +3145,51 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
               peak_gib=peak_gib)
     torch.cuda.empty_cache()
     return launches, bwd_launches, fn
+
+
+def plain_witness(arch: str, cfg, kernel_losses: list,
+                  dev: torch.device) -> None:
+    """``cfg`` (``train_model``'s) through ``train_loop`` once more from
+    seed 0 on the plain attention route (the reference function and its
+    autograd backward; no flash kernel may launch), in the same dtypes:
+    step 0's loss comes before any update, step 1's after the first
+    AdamW step on the plain route's gradients, so it shows the update
+    moving the weights as the kernel route's did.  Each loss's relative
+    gap to the kernel route's ``kernel_losses`` within BF16_MARGIN
+    (phase 4's margin; no fp32 yardstick at this size: an fp32 copy of
+    one grok-1 layer's experts alone is 19 GiB beside 52 GiB of state)."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.train import train_loop
+    spec = TRAIN[arch]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()
+    t = time.perf_counter()
+    res = train_loop(cfg.replace(attn_impl="reference"),
+                     steps=spec["steps"], batch=spec["batch"],
+                     seq_len=TRAIN_SEQ, log_every=spec["steps"], seed=0,
+                     device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    after = launch_counts()
+    launched = sum(after[k] - before[k] for k in (
+        "flash_attention", "flash_attention_backward"))
+    losses, step_s = res["losses"], res["step_seconds"]
+    del res
+    torch.cuda.empty_cache()
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, kernel_losses)]
+    log(f"  {arch}: plain attention route, {spec['steps']} steps in "
+        f"{wall:.2f}s: losses {', '.join(f'{x:.6f}' for x in losses)} "
+        f"against the kernel route's "
+        f"{', '.join(f'{x:.6f}' for x in kernel_losses)}: rel gap a step "
+        f"{', '.join(f'{g:.3g}' for g in gaps)} (tolerance {BF16_MARGIN}); "
+        f"step ms {', '.join(f'{x * 1e3:.1f}' for x in step_s)}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+        f"GiB; flash launches {launched}; card: {card_line()}")
+    if launched or not all(np.isfinite(losses)) or max(gaps) > BF16_MARGIN:
+        raise AssertionError(f"{arch}: the plain route's losses {losses} "
+                             f"(flash launches {launched}) against the "
+                             f"kernel route's {kernel_losses}")
 
 
 def train_resume(dev: torch.device) -> None:
@@ -3054,16 +3226,73 @@ def train_resume(dev: torch.device) -> None:
                              f"{rest['steps_done']} steps, params gap {gap}")
 
 
+def accumulator_gap(arch: str, dev: torch.device, depth: int) -> None:
+    """``arch`` at ``depth`` layers through ``train_loop`` twice from seed
+    0, with its own (bf16) gradient accumulator and with an fp32 one: the
+    losses' largest relative gap, logged beside each run's peak memory.
+    Step 0's loss comes before any update and must agree within
+    RERUN_RTOL; the later ones carry the rounding of the accumulated sums
+    (a finding, not a gate)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    spec = TRAIN[arch]
+    cfg = get_config(arch).replace(n_layers=depth,
+                                   grad_accum=spec["grad_accum"])
+    runs = {}
+    for acc in (cfg.grad_accum_dtype, "float32"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = train_loop(cfg.replace(grad_accum_dtype=acc),
+                         steps=spec["steps"], batch=spec["batch"],
+                         seq_len=TRAIN_SEQ, log_every=spec["steps"], seed=0,
+                         device=dev)
+        runs[acc] = res["losses"]
+        log(f"  {arch} at {depth} of {get_config(arch).n_layers} layers, a "
+            f"{acc} accumulator over {cfg.grad_accum} microbatches: losses "
+            f"{', '.join(f'{x:.6f}' for x in res['losses'])}; steps ms "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in res['step_seconds'])}; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        del res
+    low, full = runs.values()
+    gaps = [abs(a - b) / abs(b) for a, b in zip(low, full)]
+    log(f"  {arch}: {cfg.grad_accum_dtype} against fp32 accumulator, loss "
+        f"rel gap a step {', '.join(f'{g:.3g}' for g in gaps)}; card: "
+        f"{card_line()}")
+    if gaps[0] > RERUN_RTOL:
+        raise AssertionError(f"{arch}: step 0's loss depends on the "
+                             f"accumulator ({low[0]} against {full[0]})")
+    torch.cuda.empty_cache()
+
+
+def flash_trained() -> list:
+    """TRAIN's configs that train on the flash kernels (every family but
+    'ssm'), stablelm-3b first."""
+    from repro_torch.configs import get_config
+    return [arch for arch in TRAIN if get_config(arch).family != "ssm"]
+
+
 def phase_train(dev: torch.device, profile: bool) -> dict:
     """Phase 5: the gradient route checks, stablelm-3b whole and
-    falcon-mamba-7b at 8 layers through ``train_loop``, the resume check.
-    Returns each kernel's launches in the training runs (forward and
-    backward kernels) and the Function times for the kernels line."""
+    falcon-mamba-7b at 8 layers through ``train_loop``, then the other
+    ``flash_trained`` configs (each its route check, then ``train_loop``;
+    grok-1-314b's plain-route witness), qwen2-72b's accumulator
+    against an fp32 one, the resume check.  Returns each kernel's
+    launches in the training runs (forward and backward kernels) and
+    stablelm-3b's and falcon's Function times for the kernels line."""
     t0 = time.perf_counter()
     train_route_check("stablelm-3b", dev)
     train_route_check("falcon-mamba-7b", dev)
     flash, flash_bwd, flash_fn = train_model("stablelm-3b", dev, profile)
     scan, scan_bwd, scan_fn = train_model("falcon-mamba-7b", dev)
+    for arch in flash_trained()[1:]:
+        t1 = time.perf_counter()
+        train_route_check(arch, dev)
+        n, n_bwd, _ = train_model(arch, dev)
+        flash, flash_bwd = flash + n, flash_bwd + n_bwd
+        log(f"  {arch}: route check and training in "
+            f"{time.perf_counter() - t1:.1f}s")
+    accumulator_gap("qwen2-72b", dev, ACCUM_DEPTH)
     train_resume(dev)
     log(f"training phase wall: {time.perf_counter() - t0:.1f}s")
     return {"flash_attention": (flash, flash_fn),
@@ -3738,6 +3967,13 @@ def main() -> int:
     launches["flash_attention"] += serve_model(
         "grok-1-314b", "flash_attention", ref_depth=2, dev=gen.device,
         profile=args.profile, depth=4)
+    # qwen2.5-32b (QKV bias, G 5, attention in query chunks of 1024 on the
+    # plain route), qwen2-72b (QKV bias, G 8, a 152,064-token vocabulary)
+    # and granite-20b (MQA, a gelu MLP): full width, fewer layers
+    for arch, depth in DENSE_SERVE.items():
+        launches["flash_attention"] += serve_model(
+            arch, "flash_attention", ref_depth=2, dev=gen.device,
+            profile=args.profile, depth=depth)
     # the vlm and the encoder fit the card whole: full depth and width
     launches["flash_attention"] += serve_vlm(gen.device, args.profile)
     launches["flash_attention"] += serve_encoder(gen.device, args.profile)
@@ -3844,9 +4080,10 @@ def main() -> int:
         if name in trained:
             row["train_note"] = (
                 f"launches include {trained[name][0]} from training (two "
-                f"train_loop runs: a forward launch a layer a microbatch "
-                f"and one in the remat recompute, a backward launch a "
-                f"layer a microbatch)")
+                f"train_loop runs of each trained config: a forward launch "
+                f"a layer a microbatch and one in the remat recompute, a "
+                f"backward launch a layer a microbatch; the flash rows: "
+                f"{', '.join(flash_trained())})")
         if trained.get(name, (0, {}))[1]:
             row["train_times_note"] = (
                 "at one layer's microbatch shape: train_forward_ms the "
@@ -3863,6 +4100,7 @@ def main() -> int:
                 "no TPU kernel: the reference trains by jax.grad of its "
                 "plain function at this line, which XLA compiles")
             row.update({k: v for k, v in m.items() if k.startswith("fp32_")
+                        or k.endswith("_train")
                         or k in ("device_ms", "device_ms_by_pass",
                                  "kernel_ops_ms",
                                  "fwd_bwd_ms", "library_fwd_bwd_ms",
@@ -3878,9 +4116,12 @@ def main() -> int:
                                    "B 4, Sq 2048 against Skv 1601, 8 kv "
                                    "heads of 128, G 4, non-causal; "
                                    "hubert_prefill: B 4, S 2048, 16 heads "
-                                   "of 80, non-causal; device_ms from CUDA "
-                                   "events around 20 launches back to "
-                                   "back")
+                                   "of 80, non-causal; qwen25_prefill, "
+                                   "qwen2_prefill, granite_prefill: B 4, S "
+                                   "2048, hd 128, causal, 8 kv heads at G 5 "
+                                   "and G 8, 1 kv head at G 48 (MQA); "
+                                   "device_ms from CUDA events around 20 "
+                                   "launches back to back")
             row["fp32_note"] = ("the fp32 FMA kernel "
                                 "(src/repro_torch/csrc/flash_attention.cu) "
                                 "at the same shape; its bound is fp32 FMAs "
@@ -3905,7 +4146,13 @@ def main() -> int:
                                    "fwd_bwd_ms: the forward kernel with its "
                                    "log-sum-exp then this kernel; "
                                    "library_fwd_bwd_ms: sdpa forward + "
-                                   "backward")
+                                   "backward; gqa_train: mixtral-8x7b's "
+                                   "train_4k sequence [2, 4096, 8 kv heads, "
+                                   "G 4, 128], window 4096; g5_train, "
+                                   "mqa_train: one sequence of 2048 at "
+                                   "qwen2.5-32b's Kh 8, G 5 and "
+                                   "granite-20b's Kh 1, G 48 (hd 128, "
+                                   "causal), with sdpa's enable_gqa")
             row["bound_note"] = ("the gradient's products, 10·hd an allowed "
                                  "pair a query head (S, dP, dV, dK, dQ) plus "
                                  "2·hd a row (D), at 989 TFLOP/s; "

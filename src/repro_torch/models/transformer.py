@@ -512,18 +512,37 @@ def _embed(params, batch, cfg, rules: Rules):
         x = batch["frames"].to(cdt) @ params["in_proj_w"].to(cdt)
         x = x + params["in_proj_b"].to(cdt)
         return rms_norm(x, params["in_ln"], cfg.norm_eps)
-    # gather then cast: the same values as the reference's cast then gather
     table, tok = params["tok_embed"], batch["tokens"]
     # each rank gathers its batch rows from the whole table (the table's
     # gradient: each data rank's part of the sum)
     tp = rules.placements(tok, "batch", None)
-    x = on_shards(_gather_rows, (table, tok),
+    x = on_shards(lambda t, i: EmbedRows.apply(t, i, cdt), (table, tok),
                   (rules.placements(table, None, None), tp), tp)
-    return rules.cons(x.to(cdt), "batch", None, None)
+    return rules.cons(x, "batch", None, None)
 
 
-def _gather_rows(table, idx):
-    return table[idx]
+class EmbedRows(torch.autograd.Function):
+    """``apply(table, idx, dtype)``: ``table[idx]`` cast to ``dtype``,
+    gathered then cast (the reference's cast then gather gives the same
+    values without a cast copy of the whole table).  The table's
+    gradient sums the rows of repeated ids in fp32 and rounds to the
+    table's dtype once, as the reference's gradient does at fp32 compute:
+    autograd through a gather in a bf16 table (grok-1's) would round each
+    repeat's gradient to bf16 and add them in bf16."""
+
+    @staticmethod
+    def forward(ctx, table, idx, dtype):
+        ctx.save_for_backward(idx)
+        ctx.table = (table.shape, table.dtype)
+        return table[idx].to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        shape, dtype = ctx.table
+        acc = torch.zeros(shape, dtype=torch.float32, device=grad.device)
+        acc.index_put_((idx,), grad.float(), accumulate=True)
+        return acc.to(dtype), None, None
 
 
 def _logits(params, h, cfg, rules: Rules):

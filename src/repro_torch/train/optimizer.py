@@ -94,6 +94,34 @@ def opt_state_specs(param_specs_tree) -> Dict[str, Any]:
     return {"m": param_specs_tree, "v": param_specs_tree, "step": ()}
 
 
+#: the most elements of a leaf, or of one layer of a stacked leaf, that
+#: AdamW and the global norm take at a time: their fp32 temporaries (a
+#: dozen in the update) stay at 256 MB each, where a whole leaf's would
+#: not fit beside the state on one card (qwen2-72b's head_w: 1.25e9
+#: elements, 5 GB a temporary; one grok-1 layer's stacked experts: 1.61e9)
+PIECE = 1 << 26
+
+
+def _pieces(*ts: torch.Tensor, by_layer: bool = False) -> Iterator[tuple]:
+    """Aligned views of tensors of one shape, a tuple at a time, that
+    cover them once, each of at most PIECE elements: tensors of PIECE or
+    fewer whole, larger ones in flat runs (by their leading dim where one
+    is not contiguous).  With ``by_layer`` a stacked leaf (3 or more dims)
+    goes one layer at a time first, so that the update never holds fp32
+    temporaries of more than one layer.  The update is elementwise, so
+    the pieces change none of its values."""
+    if by_layer and ts[0].dim() >= 3:
+        for rows in zip(*(t.unbind(0) for t in ts)):
+            yield from _pieces(*rows)
+    elif ts[0].numel() <= PIECE:
+        yield ts
+    elif all(t.is_contiguous() for t in ts):
+        yield from zip(*(t.view(-1).split(PIECE) for t in ts))
+    else:
+        for rows in zip(*(t.unbind(0) for t in ts)):
+            yield from _pieces(*rows)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32.  DTensor leaves
     count each element once over the mesh (``sharding.sum_of_squares``)."""
@@ -101,18 +129,19 @@ def global_norm(tree) -> torch.Tensor:
     if any(isinstance(x, DTensor) for x in leaves):
         from .sharding import sum_of_squares
         return torch.sqrt(sum_of_squares(leaves).sum())
-    return torch.sqrt(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in leaves]).sum())
+    return torch.sqrt(torch.stack([square_sum(x) for x in leaves]).sum())
+
+
+def square_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of squares of one leaf in fp32, a piece at a time
+    (``_pieces``): a leaf of at most PIECE elements in one sum, as the
+    reference sums it."""
+    sums = [torch.sum(torch.square(p.float())) for p, in _pieces(x)]
+    return sums[0] if len(sums) == 1 else torch.stack(sums).sum()
 
 
 def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
-
-
-def _slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
-    """A stacked leaf by its leading dim, any other whole: the elementwise
-    update then holds fp32 temporaries of one layer, not of the stack."""
-    return iter(t.unbind(0)) if t.dim() >= 3 else iter((t,))
 
 
 @torch.no_grad()
@@ -135,8 +164,7 @@ def adamw_update(grads, params, opt_state, ocfg: OptConfig, model_cfg
     for P, G, M, V in leaves:
         wd = ocfg.weight_decay if P.dim() >= 2 else 0.0   # none on norms
         P, G, M, V = (_local(t) for t in (P, G, M, V))
-        for p, g, m, v in zip(_slices(P), _slices(G), _slices(M),
-                              _slices(V)):
+        for p, g, m, v in _pieces(P, G, M, V, by_layer=True):
             g32 = g.float() * scale
             m32 = b1 * m.float() + (1 - b1) * g32
             v32 = b2 * v.float() + (1 - b2) * g32 * g32
