@@ -3,7 +3,8 @@
     python3 chip_smoke.py                 # all phases
     python3 chip_smoke.py --profile       # all phases + profiled Q4.1 run,
                                           # served Q4.1 tick, LM prefill
-                                          # and decode step, a train step
+                                          # and decode step, a train
+                                          # step of each trained config
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -43,7 +44,10 @@ Phases (any failure raises and the script exits non-zero):
    microbatch shapes (flash: stablelm-3b's [2, 2048, 32, 80] bf16, causal,
    beside scaled_dot_product_attention's forward + backward, and the
    GQA microbatches of mixtral-8x7b, qwen2.5-32b (G 5) and granite-20b
-   (MQA: 1 kv head, G 48, the dK/dV kernel's grid 32 blocks); the scan:
+   (MQA: 1 kv head, G 48, the dK/dV kernel's grid 32 blocks), and the
+   non-causal ones: llama-3.2-vision-11b's cross-attention (2048 queries
+   against 1601 vision tokens, G 4, hd 128: a last key tile of one key)
+   and hubert-xlarge's encoder (4 x 2048, 16 heads of 80); the scan:
    falcon-mamba-7b's Bt 1, T 2048, d 8192, N 16 with bf16 delta/x, each of
    its four launches timed) and at the card tests' shapes, each against
    its plain version from the forward kernel's own output and log-sum-exp
@@ -126,26 +130,37 @@ Phases (any failure raises and the script exits non-zero):
    and AdamW moments: 41.7 GiB) and falcon-mamba-7b at 8 of 64 layers
    through ``launch.train.train_loop``, twice from seed 0: finite losses,
    step 0 within 10% of ln(vocab) of the initialised model's expected
-   loss (``initial_loss``), the forward kernel launched twice a
-   layer a microbatch (forward and remat recompute) and the backward
-   kernel once, the second run's losses within RERUN_RTOL (and whether
-   they are bit-identical); step ms, tokens/s, 6·N·tokens / step time
-   against the bf16 peak, peak memory, a microbatch's forward/backward
-   split and, at one layer's shape, the forward kernel, the backward
-   kernel through the Function and the plain backward.  Then
-   TRAIN's other configs, each at full width, cut in depth, its route
-   check at 2 layers (grok-1 and mixtral with their largest expert loads
-   against the capacity) and the same two ``train_loop`` runs of 2 steps:
-   qwen2.5-32b, qwen2-72b with its bf16 accumulator, granite-20b,
-   mixtral-8x7b and grok-1-314b with bf16 parameters and AdamW moments;
+   loss (``initial_loss``), the forward kernel launched twice a call a
+   microbatch (forward and remat recompute) and the backward kernel
+   once, a call being a layer's and, for the vlm, a cross-attention
+   layer's second one (``forward_calls``), the second run's losses within
+   RERUN_RTOL (and whether they are bit-identical); step ms, tokens/s,
+   6·N·tokens / step time against the bf16 peak, peak memory, a
+   microbatch's forward/backward split and, at each of a microbatch's
+   flash shapes (the model's own causality; the vlm's cross-attention
+   too), the forward kernel, the backward kernel through the Function
+   and the plain backward.  Then TRAIN's other configs, each at full
+   width, its route check at the smallest depth its period allows (2
+   layers; the vlm 5, one cross-attention layer, with its gates set from
+   GATE_SEED as phase 4 sets them and every ``xattn`` leaf's fp32 and
+   kernel-route gradient norm above zero: at zero gates the per-leaf rule
+   would compare zeros) (grok-1 and mixtral with their largest expert
+   loads against the capacity) and the same two ``train_loop`` runs of 2
+   steps: qwen2.5-32b, qwen2-72b with its bf16 accumulator, granite-20b,
+   mixtral-8x7b, grok-1-314b with bf16 parameters and AdamW moments,
+   llama-3.2-vision-11b at 10 of 40 layers (8 x 2048 tokens and a vision
+   input [1601, 4096] a sequence; ``train_loop`` keeps the zero gates of
+   the initialised model, so its cross-attention backward runs on a
+   gradient of about zero at step 0) and hubert-xlarge whole (16 x 2048
+   stub frames, the loss over ``labels`` at every position, non-causal);
    grok-1's run once more on the plain attention route
    (``plain_witness``): its losses, step 1's after the first bf16 AdamW
    update included, within BF16_MARGIN of the kernel route's.
    qwen2-72b at ACCUM_DEPTH layers with its bf16 accumulator against an
    fp32 one from the same seed: the losses' gap, logged.  Then resume at
    the stablelm smoke config: 2 steps, a checkpoint, 2 resumed steps
-   equal to 4 straight ones.  ``--profile``: one stablelm-3b train step
-   under the profiler.
+   equal to 4 straight ones.  ``--profile``: one train step of each
+   trained config under the profiler.
 6. LM sharded path (``train/sharding.py``, DTensor over a ``DeviceMesh``):
    a world of one ``nccl`` rank and a 1x1 mesh with the real
    ``make_rules``.  stablelm-3b whole, two steps of phase 5's batch (8 x
@@ -1373,7 +1388,7 @@ def phase_flash_backward(gen) -> dict:
     """The flash backward kernel at stablelm-3b's training microbatch
     (2 sequences of 2048, 32 heads of 80, causal) in bf16, as the model
     trains (the kernels line's row), and in fp32 (fields of their own);
-    at the GQA configs' training shape (``gqa_train``); then the card
+    at the other trained configs' microbatches (``*_train``); then the card
     tests' options: GQA, window, softcap, Sq != Skv, rows with no allowed
     key, hd 8 through 256."""
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1404,6 +1419,19 @@ def phase_flash_backward(gen) -> dict:
     main["mqa_train"] = _flash_bwd_case(
         "granite-20b train microbatch (MQA: Kh 1, G 48, hd 128), bf16 "
         "tensor cores", gen, 1, 2048, 2048, 1, 48, 128, True, 0, 0.0, bf16,
+        library=True, device=True)
+    # the non-causal microbatches: llama-3.2-vision-11b's cross-attention
+    # (1601 = 25 x 64 + 1 vision keys: the last key tile holds one key, and
+    # its dK/dV rows are a 64-row tile of one row) and hubert-xlarge's
+    # encoder (16 heads of 80, every pair allowed)
+    main["vlm_cross_train"] = _flash_bwd_case(
+        "llama-3.2-vision-11b cross-attention train microbatch (Sq 2048, "
+        "Skv 1601, Kh 8, G 4, hd 128, non-causal), bf16 tensor cores", gen,
+        1, 2048, 1601, 8, 4, 128, False, 0, 0.0, bf16, library=True,
+        device=True)
+    main["hubert_train"] = _flash_bwd_case(
+        "hubert-xlarge train microbatch (16 heads of 80, non-causal), bf16 "
+        "tensor cores", gen, 4, 2048, 2048, 16, 1, 80, False, 0, 0.0, bf16,
         library=True, device=True)
     for args in (("gqa+window+softcap hd128", 2, 257, 257, 2, 2, 128, True,
                   100, 30.0, bf16),
@@ -2761,9 +2789,13 @@ def serve_encoder(dev: torch.device, profile: bool = False) -> int:
 #: parameters, the accumulator and the AdamW moments fit the card:
 #: qwen2.5-32b at 4 of 64 layers, qwen2-72b at 2 of 80 (a bf16
 #: accumulator), granite-20b at 6 of 52, mixtral-8x7b at 2 of 32 and
-#: grok-1-314b at 1 of 64 (bf16 parameters and moments).  Tokens from
-#: ``InputPipeline``, seed 0.  ``plain_witness``: the run once more on
-#: the plain attention route.
+#: grok-1-314b at 1 of 64 (bf16 parameters and moments),
+#: llama-3.2-vision-11b at 10 of 40 (two periods of 5: cross-attention at
+#: layers 3 and 8; 8 x 2048 in 8 microbatches) and hubert-xlarge whole (16
+#: x 2048 frames in 4).  Tokens from ``InputPipeline``, seed 0 (the vlm's
+#: vision and the encoder's frames: ``make_lm_batch_fn``'s stub
+#: embeddings).  ``plain_witness``: the run once more on the plain
+#: attention route.
 TRAIN = {"stablelm-3b": dict(depth=0, batch=8, grad_accum=4, steps=4),
          "falcon-mamba-7b": dict(depth=8, batch=2, grad_accum=2, steps=3),
          "qwen2.5-32b": dict(depth=4, batch=16, grad_accum=16, steps=2),
@@ -2771,7 +2803,10 @@ TRAIN = {"stablelm-3b": dict(depth=0, batch=8, grad_accum=4, steps=4),
          "granite-20b": dict(depth=6, batch=8, grad_accum=8, steps=2),
          "mixtral-8x7b": dict(depth=2, batch=8, grad_accum=8, steps=2),
          "grok-1-314b": dict(depth=1, batch=16, grad_accum=16, steps=2,
-                             plain_witness=True)}
+                             plain_witness=True),
+         "llama-3.2-vision-11b": dict(depth=10, batch=8, grad_accum=8,
+                                      steps=2),
+         "hubert-xlarge": dict(depth=0, batch=16, grad_accum=4, steps=2)}
 #: qwen2-72b's bf16 accumulator against an fp32 one from the same seed, at
 #: this depth: at phase 5's 2 layers the fp32 accumulator's 2 more bytes a
 #: parameter (7.9 GiB) would come on top of the bf16 run's peak of 63.8 GiB
@@ -2794,6 +2829,18 @@ def initial_loss(cfg) -> float:
     from repro_torch.models import transformer as tf
     s = {path: scale for path, _, _, scale in tf._top_defs(cfg)}["head_w"]
     return float(np.log(cfg.vocab_size)) + s ** 2 * cfg.d_model / 2
+
+
+def forward_calls(cfg) -> int:
+    """The forward-kernel calls of one microbatch through ``forward_train``:
+    one a layer (flash, or the scan on an ssm layer) and one more a
+    cross-attention layer, whose batch carries vision in every run of this
+    phase.  Each call's backward kernel runs once, its forward once more
+    in the period's remat recompute."""
+    return cfg.n_layers + sum(cfg.has_cross_attn(i)
+                              for i in range(cfg.n_layers))
+
+
 #: a second run from the same seed: every loss within this relative gap
 #: (the step is deterministic unless an atomic adds in another order)
 RERUN_RTOL = 1e-3
@@ -2850,20 +2897,30 @@ def _grad_norms(cfg, params, batch):
             + counts["mamba_scan_backward"], names)
 
 
-def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
+def train_route_check(arch: str, dev: torch.device) -> None:
     """One microbatch of the trained shape (seed 0's first block) through
-    ``forward_train`` and its backward at ``arch``'s full width and
-    ``depth`` layers: the kernel route (the forward and backward kernels)
+    ``forward_train`` and its backward at ``arch``'s full width and the
+    fewest layers past one that its period allows (``transformer.period``:
+    2, a vlm's 5, one cross-attention layer): the kernel route (the forward and backward kernels)
     against the plain route, both in the compute dtype, with the fp32
     plain route as the yardstick.  Loss, global
     gradient norm and every leaf's gradient norm: the kernel route's
     relative gap to the yardstick must be no larger than twice the plain
-    route's plus BF16_MARGIN (phase 4's rule)."""
+    route's plus BF16_MARGIN (phase 4's rule).  A vlm's gates are first
+    set from GATE_SEED, and each of its ``xattn`` leaves must get a
+    gradient on the fp32 plain and the kernel route: at the initialised
+    zero gates the branch passes none, and the per-leaf rule would pass
+    on zeros."""
+    from repro_torch.configs import get_config
     from repro_torch.data import (InputPipeline, PipelineConfig,
                                   make_lm_batch_fn)
     from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer as tf
     spec = TRAIN[arch]
+    period = tf.period(get_config(arch))
+    depth = -(-2 // period) * period
     cfg, params = make_model(arch, dev, depth)
+    gates = set_gates(params) if cfg.family == "vlm" else []
     rows = spec["batch"] // spec["grad_accum"]
     blk = next(iter(InputPipeline(PipelineConfig(
         seq_len=TRAIN_SEQ, global_batch=rows, vocab_size=cfg.vocab_size,
@@ -2876,13 +2933,26 @@ def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
         kernel = _grad_norms(cfg, params, batch)
     ref = _grad_norms(cfg.replace(**plain), params, batch)
     launched, backward = kernel[2] + kernel[3], kernel[4]
-    if launched != 2 * depth or backward != depth or sum(
+    calls = forward_calls(cfg)
+    if launched != 2 * calls or backward != calls or sum(
             ref[2:5] + truth[2:5]):
         raise AssertionError(f"{arch}: the kernel route launched {launched} "
                              f"forward and {backward} backward kernels, "
-                             f"expected {2 * depth} (a layer, forward and "
-                             f"remat recompute) and {depth}; the plain "
-                             f"routes must launch none")
+                             f"expected {2 * calls} (a call, forward and "
+                             f"remat recompute; {calls} calls at depth "
+                             f"{depth}) and {calls}; the plain routes must "
+                             f"launch none")
+    if gates:
+        xattn = [(name, float(truth[1][i]), float(kernel[1][i]))
+                 for i, name in enumerate(truth[5]) if ".xattn." in name]
+        log(f"  {arch}: gates set from numpy seed {GATE_SEED}: "
+            f"{', '.join(f'{g:.4f}' for g in gates)}; xattn grad norms "
+            f"fp32 plain / kernel route: " + ", ".join(
+                f"{name.split('.', 2)[-1]} {t:.4g} / {k:.4g}"
+                for name, t, k in xattn))
+        if not xattn or not all(t > 0 and k > 0 for _, t, k in xattn):
+            raise AssertionError(f"{arch}: a cross-attention leaf got no "
+                                 f"gradient: {xattn}")
 
     def gaps(run):
         loss_gap = abs(run[0] - truth[0]) / abs(truth[0])
@@ -2916,9 +2986,12 @@ def train_route_check(arch: str, dev: torch.device, depth: int = 2) -> None:
 
 
 def _function_times(arch: str, cfg, dev: torch.device) -> dict:
-    """At one layer's microbatch shape of the trained model (CUDA events,
-    the median of 5): the forward kernel, the Function's backward (the
-    backward kernel) and the plain backward on the same saved values."""
+    """At one microbatch's shapes of the trained model (CUDA events, the
+    median of 5): the forward kernel, the Function's backward (the
+    backward kernel) and the plain backward on the same saved values.
+    Flash at the model's own causality, window and softcap; a vlm's
+    cross-attention too (``cross_*``: the text queries against its
+    vision tokens, non-causal, no window)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_backward_ref)
     from repro_torch.kernels.mamba_scan import (mamba_scan,
@@ -2928,44 +3001,53 @@ def _function_times(arch: str, cfg, dev: torch.device) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     bf16 = torch.bfloat16
-    flash = cfg.family != "ssm"
-    if flash:
+
+    def timed(what, shape, ins, fwd, plain):
+        leaves = [t.requires_grad_(True) for t in ins]
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: fwd(*leaves), iters=5, warmup=1)
+        out = fwd(*leaves)
+        g = torch.ones_like(out)
+
+        def backward():
+            torch.autograd.grad(out, leaves, g, retain_graph=True)
+        bwd_ms = time_ms(backward, iters=5, warmup=1)
+        saved = [t.detach() for t in out.grad_fn.saved_tensors]
+        plain_ms = time_ms(lambda: plain(saved, g), iters=3, warmup=1)
+        log(f"  {arch}: {what} at one microbatch ({shape}): forward kernel "
+            f"{fwd_ms:.4f} ms, the Function's backward (the backward "
+            f"kernel) {bwd_ms:.4f} ms, the plain backward {plain_ms:.4f} ms")
+        return {"forward_ms": fwd_ms, "backward_ms": bwd_ms,
+                "plain_backward_ms": plain_ms}
+
+    def flash(what, Skv, **kw):
         kh, hd = cfg.n_kv_heads, cfg.hd
         G = cfg.n_heads // kh
         ins = [torch.randn(s, generator=gen, device=dev).to(bf16)
-               for s in ((rows, S, kh, G, hd), (rows, S, kh, hd),
-                         (rows, S, kh, hd))]
-        kw = dict(causal=True, window=cfg.sliding_window,
-                  softcap=cfg.logit_softcap)
-        fwd = lambda *a: flash_attention(*a, impl="cuda", **kw)
-        plain = lambda saved, g: flash_attention_backward_ref(*saved, g,
-                                                              **kw)
-        shape = (f"[{rows}, {S}, {kh}, {G}, {hd}] bf16, window "
-                 f"{cfg.sliding_window}, softcap {cfg.logit_softcap}")
-    else:
+               for s in ((rows, S, kh, G, hd), (rows, Skv, kh, hd),
+                         (rows, Skv, kh, hd))]
+        return timed(
+            what, f"[{rows}, {S}, {kh}, {G}, {hd}] against {Skv} keys, "
+            f"bf16, causal {kw['causal']}, window {kw['window']}, softcap "
+            f"{kw['softcap']}", ins,
+            lambda *a: flash_attention(*a, impl="cuda", **kw),
+            lambda saved, g: flash_attention_backward_ref(*saved, g, **kw))
+
+    if cfg.family == "ssm":
         d, N = cfg.d_inner, cfg.ssm_state
         ins = list(_scan_inputs(gen, rows, S, d, N, True, bf16))
-        fwd = lambda *a: mamba_scan(*a, impl="cuda")[0]
-        plain = lambda saved, g: mamba_scan_backward_ref(
-            *saved, g, torch.zeros_like(ins[5]))
-        shape = f"Bt {rows}, T {S}, d {d}, N {N}, bf16 delta/x"
-    leaves = [t.requires_grad_(True) for t in ins]
-    with torch.no_grad():
-        fwd_ms = time_ms(lambda: fwd(*leaves), iters=5, warmup=1)
-    out = fwd(*leaves)
-    g = torch.ones_like(out)
-
-    def backward():
-        torch.autograd.grad(out, leaves, g, retain_graph=True)
-    bwd_ms = time_ms(backward, iters=5, warmup=1)
-    saved = [t.detach() for t in out.grad_fn.saved_tensors]
-    plain_ms = time_ms(lambda: plain(saved, g), iters=3, warmup=1)
-    log(f"  {arch}: {'flash' if flash else 'scan'} at one "
-        f"layer's microbatch ({shape}): forward kernel {fwd_ms:.4f} ms, "
-        f"the Function's backward (the backward kernel) {bwd_ms:.4f} ms, "
-        f"the plain backward {plain_ms:.4f} ms")
-    return {"forward_ms": fwd_ms, "backward_ms": bwd_ms,
-            "plain_backward_ms": plain_ms}
+        return timed("scan", f"Bt {rows}, T {S}, d {d}, N {N}, bf16 "
+                     f"delta/x", ins,
+                     lambda *a: mamba_scan(*a, impl="cuda")[0],
+                     lambda saved, g: mamba_scan_backward_ref(
+                         *saved, g, torch.zeros_like(ins[5])))
+    times = flash("flash", S, causal=cfg.causal, window=cfg.sliding_window,
+                  softcap=cfg.logit_softcap)
+    if cfg.family == "vlm":
+        cross = flash("flash's cross-attention", cfg.n_vision_tokens,
+                      causal=False, window=0, softcap=cfg.logit_softcap)
+        times.update({f"cross_{k}": v for k, v in cross.items()})
+    return times
 
 
 def _step_breakdown(cfg, params, batch) -> dict:
@@ -2998,15 +3080,16 @@ def _step_breakdown(cfg, params, batch) -> dict:
 def train_model(arch: str, dev: torch.device, profile: bool = False):
     """``arch`` (TRAIN) through ``launch.train.train_loop`` twice from seed
     0: finite losses, step 0 near the initialised model's expected loss
-    (``initial_loss``), the forward kernel launched
-    once a layer a microbatch in the forward and once more in the remat
-    recompute, the backward kernel once a layer a microbatch, the second
-    run's losses within RERUN_RTOL (and whether they are bit-identical).
-    Prints step ms, tokens/s, 6·N·tokens / step time against the bf16
-    peak (N the parameters a token runs through) and the peak memory;
-    then the forward/backward split of a microbatch and the Function's
-    kernels and the plain backward at one layer's shape.  Returns (the forward kernel's launches in the two
-    runs, the backward kernel's, the Function times)."""
+    (``initial_loss``), the forward kernel launched once a call
+    (``forward_calls``) a microbatch in the forward and once more in the
+    remat recompute, the backward kernel once a call a microbatch, the
+    second run's losses within RERUN_RTOL (and whether they are
+    bit-identical).  Prints step ms, tokens/s, 6·N·tokens / step time
+    against the bf16 peak (N the parameters a token runs through) and the
+    peak memory; then the forward/backward split of a microbatch and the
+    Function's kernels and the plain backward at a microbatch's shapes.
+    Returns (the forward kernel's launches in the two runs, the backward
+    kernel's, the Function times)."""
     from repro_torch.configs import get_config
     from repro_torch.data import (InputPipeline, PipelineConfig,
                                   make_lm_batch_fn)
@@ -3021,7 +3104,8 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
     backward = f"{kernel}_backward"
     n, n_active = tf.param_count(cfg), cfg.active_param_count()
     tokens = spec["batch"] * TRAIN_SEQ
-    per_step = cfg.n_layers * cfg.grad_accum * 2
+    calls = forward_calls(cfg)
+    per_step = calls * cfg.grad_accum * 2
     depth = (f"{cfg.n_layers} of {full.n_layers} layers, " if spec["depth"]
              else "whole, ")
     size = lambda name: torch.empty((), dtype=getattr(torch, name)
@@ -3035,7 +3119,14 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
         f"{cfg.opt_state_dtype}: {state / 2**30:.1f} GiB), compute "
         f"{cfg.compute_dtype}, remat {cfg.remat_policy}, global batch "
         f"{spec['batch']} x {TRAIN_SEQ} in {cfg.grad_accum} microbatches, "
-        f"{spec['steps']} steps; card: {card_line()}")
+        f"{spec['steps']} steps, {calls} {kernel} calls a microbatch; "
+        f"card: {card_line()}")
+    if cfg.family == "vlm":
+        log(f"  {arch}: train_loop keeps the initialised zero gates (as the "
+            f"reference's): at step 0 tanh(0) passes the cross-attention no "
+            f"gradient, so its backward kernel runs on a gradient of about "
+            f"zero there. Not a check of the branch; the route check, with "
+            f"the gates set, is")
     runs, launches, bwd_launches, res = [], 0, 0, None
     torch.cuda.synchronize()
     reset_launches()
@@ -3056,16 +3147,16 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
         if launched != per_step * spec["steps"]:
             raise AssertionError(f"{arch}#{attempt}: {kernel} launched "
                                  f"{launched} times, expected {per_step} a "
-                                 f"step ({cfg.n_layers} layers x "
+                                 f"step ({calls} calls (forward_calls) x "
                                  f"{cfg.grad_accum} microbatches x 2: the "
                                  f"forward and the remat recompute) x "
                                  f"{spec['steps']}")
         if launched_bwd != per_step // 2 * spec["steps"]:
             raise AssertionError(f"{arch}#{attempt}: {backward} launched "
                                  f"{launched_bwd} times, expected "
-                                 f"{per_step // 2} a step ({cfg.n_layers} "
-                                 f"layers x {cfg.grad_accum} microbatches) "
-                                 f"x {spec['steps']}")
+                                 f"{per_step // 2} a step ({calls} calls x "
+                                 f"{cfg.grad_accum} microbatches) x "
+                                 f"{spec['steps']}")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{arch}#{attempt}: losses {losses}")
         ln_v, loss0 = float(np.log(cfg.vocab_size)), initial_loss(cfg)
@@ -3132,15 +3223,19 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
     if spec.get("plain_witness"):
         plain_witness(arch, cfg, runs[0], dev)
     fn = _function_times(arch, cfg, dev)
-    calls = cfg.n_layers * cfg.grad_accum
-    log(f"  {arch}: the backward kernel, {calls} calls a step: "
-        f"{calls * fn['backward_ms']:.1f} ms = "
-        f"{calls * fn['backward_ms'] / (steady * 1e3):.4f} of the step "
-        f"(the forward kernel {2 * calls * fn['forward_ms']:.1f} ms over "
-        f"{2 * calls} launches; the plain backward would take "
-        f"{calls * fn['plain_backward_ms']:.1f} ms)")
+    # a step's ms at each shape: the layers' calls, the cross-attention's
+    n_cross = calls - cfg.n_layers
+    a_step = {k: (cfg.n_layers * fn[k] + n_cross * fn.get(f"cross_{k}", 0))
+              * cfg.grad_accum for k in ("forward_ms", "backward_ms",
+                                         "plain_backward_ms")}
+    log(f"  {arch}: the backward kernel, {calls * cfg.grad_accum} calls a "
+        f"step: {a_step['backward_ms']:.1f} ms = "
+        f"{a_step['backward_ms'] / (steady * 1e3):.4f} of the step (the "
+        f"forward kernel {2 * a_step['forward_ms']:.1f} ms over "
+        f"{2 * calls * cfg.grad_accum} launches; the plain backward would "
+        f"take {a_step['plain_backward_ms']:.1f} ms)")
     fn.update(step_ms=steady * 1e3, backward_share=bwd / (fwd + bwd),
-              function_backward_share=calls * fn["backward_ms"]
+              function_backward_share=a_step["backward_ms"]
               / (steady * 1e3),
               peak_gib=peak_gib)
     torch.cuda.empty_cache()
@@ -3272,6 +3367,11 @@ def flash_trained() -> list:
     return [arch for arch in TRAIN if get_config(arch).family != "ssm"]
 
 
+#: the kernels line's fields (``train_<key>_*``) for these configs' flash
+#: Function times, beside stablelm-3b's (``train_*``)
+TRAIN_FIELDS = {"llama-3.2-vision-11b": "vlm", "hubert-xlarge": "hubert"}
+
+
 def phase_train(dev: torch.device, profile: bool) -> dict:
     """Phase 5: the gradient route checks, stablelm-3b whole and
     falcon-mamba-7b at 8 layers through ``train_loop``, then the other
@@ -3279,17 +3379,21 @@ def phase_train(dev: torch.device, profile: bool) -> dict:
     grok-1-314b's plain-route witness), qwen2-72b's accumulator
     against an fp32 one, the resume check.  Returns each kernel's
     launches in the training runs (forward and backward kernels) and
-    stablelm-3b's and falcon's Function times for the kernels line."""
+    the Function times for the kernels line: stablelm-3b's and falcon's,
+    and the vlm's (self- and cross-attention) and hubert's under
+    TRAIN_FIELDS' keys."""
     t0 = time.perf_counter()
     train_route_check("stablelm-3b", dev)
     train_route_check("falcon-mamba-7b", dev)
     flash, flash_bwd, flash_fn = train_model("stablelm-3b", dev, profile)
-    scan, scan_bwd, scan_fn = train_model("falcon-mamba-7b", dev)
+    scan, scan_bwd, scan_fn = train_model("falcon-mamba-7b", dev, profile)
     for arch in flash_trained()[1:]:
         t1 = time.perf_counter()
         train_route_check(arch, dev)
-        n, n_bwd, _ = train_model(arch, dev)
+        n, n_bwd, fn = train_model(arch, dev, profile)
         flash, flash_bwd = flash + n, flash_bwd + n_bwd
+        if arch in TRAIN_FIELDS:
+            flash_fn[TRAIN_FIELDS[arch]] = fn
         log(f"  {arch}: route check and training in "
             f"{time.perf_counter() - t1:.1f}s")
     accumulator_gap("qwen2-72b", dev, ACCUM_DEPTH)
@@ -3864,8 +3968,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one more fused Q4.1 run, one warm "
                          "served Q4.1 tick, one prefill and one decode "
-                         "step of each LM and one stablelm-3b train step "
-                         "(device busy time by kernel, idle share)")
+                         "step of each LM and one train step of each "
+                         "trained config (device busy time by kernel, "
+                         "idle share)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4081,8 +4186,9 @@ def main() -> int:
             row["train_note"] = (
                 f"launches include {trained[name][0]} from training (two "
                 f"train_loop runs of each trained config: a forward launch "
-                f"a layer a microbatch and one in the remat recompute, a "
-                f"backward launch a layer a microbatch; the flash rows: "
+                f"a call a microbatch and one in the remat recompute, a "
+                f"backward launch a call a microbatch; a call a layer and "
+                f"one more a vlm cross-attention layer; the flash rows: "
                 f"{', '.join(flash_trained())})")
         if trained.get(name, (0, {}))[1]:
             row["train_times_note"] = (
@@ -4094,7 +4200,11 @@ def main() -> int:
                 "backward over its forward + backward; "
                 "train_function_backward_share the backward kernel's calls "
                 "over the step; train_peak_gib the training run's peak "
-                "device memory")
+                "device memory; train_vlm, train_hubert: the same for "
+                "llama-3.2-vision-11b (its self-attention [1, 2048, 8, 4, "
+                "128], causal; cross_*: its cross-attention, 2048 queries "
+                "against 1601 vision keys, non-causal) and hubert-xlarge "
+                "([4, 2048, 16, 1, 80], non-causal)")
         if name in ("flash_attention_backward", "mamba_scan_backward"):
             row["replaces_note"] = (
                 "no TPU kernel: the reference trains by jax.grad of its "
@@ -4152,7 +4262,14 @@ def main() -> int:
                                    "mqa_train: one sequence of 2048 at "
                                    "qwen2.5-32b's Kh 8, G 5 and "
                                    "granite-20b's Kh 1, G 48 (hd 128, "
-                                   "causal), with sdpa's enable_gqa")
+                                   "causal), with sdpa's enable_gqa; "
+                                   "vlm_cross_train: llama-3.2-vision-11b's "
+                                   "cross-attention microbatch [1, Sq 2048, "
+                                   "Skv 1601, Kh 8, G 4, 128], non-causal "
+                                   "(sdpa is_causal=False, enable_gqa); "
+                                   "hubert_train: hubert-xlarge's "
+                                   "microbatch [4, 2048, 16 heads of 80], "
+                                   "non-causal")
             row["bound_note"] = ("the gradient's products, 10·hd an allowed "
                                  "pair a query head (S, dP, dV, dK, dQ) plus "
                                  "2·hd a row (D), at 989 TFLOP/s; "

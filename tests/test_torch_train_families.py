@@ -22,7 +22,7 @@ from _torch_lm import check_forward_train
 @pytest.mark.parametrize("arch,route", [
     ("mixtral-8x7b", "auto"), ("mixtral-8x7b", "cuda"),
     ("llama-3.2-vision-11b", "auto"), ("llama-3.2-vision-11b", "cuda"),
-    ("hubert-xlarge", "auto"),
+    ("hubert-xlarge", "auto"), ("hubert-xlarge", "cuda"),
     ("jamba-1.5-large-398b", "auto"), ("jamba-1.5-large-398b", "cuda")])
 def test_forward_train_matches_value_and_grad(arch, route, monkeypatch):
     mets = check_forward_train(arch, route, monkeypatch)
