@@ -1,0 +1,9 @@
+"""The selective scan's backward calls in the traced step: their least
+time over their device time, in percent."""
+from portbench.readers import roofline_share
+
+OPS = ("repro_torch::mamba_scan_backward",)
+
+
+def read(run):
+    return roofline_share(run, OPS)
