@@ -33,6 +33,7 @@ from ..core.expr import col
 from ..core.graph import Dataflow
 from ..core.shared_cache import SharedCache, concat_caches
 from ..etl.components import CollectSink, Filter
+from ..obs import trace
 
 
 @dataclass(frozen=True)
@@ -139,17 +140,24 @@ class InputPipeline:
         self.engine_runs = []
 
     def _refill(self) -> None:
-        cfg = self.cfg
-        flow, packer, sink = build_lm_dataflow(cfg, self._window, self._carry)
-        run = OptimizedEngine(flow, OptimizeOptions(
-            num_splits=cfg.num_splits,
-            pipeline_degree=cfg.pipeline_degree, backend="numpy")).run()
-        self.engine_runs.append(run)
-        self._carry = packer.leftover
-        got = sink.result()["tokens"].astype(np.int32)
-        self._pool = (np.concatenate([self._pool, got])
-                      if len(self._pool) else got)
-        self._window += 1
+        """One engine run over the next window of documents (span
+        ``data.refill``: ``window``, the ``rows`` it packed)."""
+        with (trace.span("data", "data.refill", counter="data_refills",
+                         window=self._window)
+              if trace.ACTIVE.get() else trace.NULL_SPAN) as sp:
+            cfg = self.cfg
+            flow, packer, sink = build_lm_dataflow(cfg, self._window,
+                                                   self._carry)
+            run = OptimizedEngine(flow, OptimizeOptions(
+                num_splits=cfg.num_splits,
+                pipeline_degree=cfg.pipeline_degree, backend="numpy")).run()
+            self.engine_runs.append(run)
+            self._carry = packer.leftover
+            got = sink.result()["tokens"].astype(np.int32)
+            self._pool = (np.concatenate([self._pool, got])
+                          if len(self._pool) else got)
+            self._window += 1
+            sp.set(rows=len(got))
 
     def __iter__(self) -> Iterator[np.ndarray]:
         return self

@@ -12,7 +12,10 @@ versions, for the smoke configs).  ``--mesh data=D,model=M`` (and
 ``pod=P``) shards the step over the ranks ``torchrun`` starts: the
 process group is ``nccl`` on the card and ``gloo`` on the CPU unless
 ``--dist-backend`` names one; under ``nccl`` a world larger than the
-visible cards raises.
+visible cards raises.  ``REPRO_TRACE=1`` records the run's spans (the
+train step's, the model's and the input feed's) and writes them to
+``REPRO_TRACE_PATH`` at the end (``python -m repro_torch.obs.report``
+reads the file).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
@@ -36,6 +39,7 @@ from ..configs import ARCH_IDS, get_config
 from ..data import InputPipeline, PipelineConfig, PrefetchQueue, make_lm_batch_fn
 from ..models.layers import NO_RULES, resolve_device
 from ..models.transformer import check_supported, init_params
+from ..obs import trace
 from ..train.checkpoint import (CheckpointManager, latest_step,
                                 restore_checkpoint)
 from ..train.fault import StragglerWatchdog
@@ -132,47 +136,55 @@ def train_loop(cfg, *, steps: int, batch: int, seq_len: int,
             start_step = int(meta["step"])
             print(f"resumed from step {start_step}")
 
-    pc = PipelineConfig(seq_len=seq_len, global_batch=batch,
-                        vocab_size=cfg.vocab_size,
-                        docs_per_window=max(batch * 16, 512),
-                        prefetch_depth=prefetch_depth, seed=seed)
-    to_model = make_lm_batch_fn(cfg)
-    blocks = iter(InputPipeline(pc))
-    for _ in range(start_step):
-        next(blocks)
-    feed = PrefetchQueue(blocks, depth=pc.prefetch_depth,
-                         stage_fn=lambda blk: to_device(to_model(blk),
-                                                        device))
-    watchdog = StragglerWatchdog(window=16, threshold=3.0)
-    losses, step_seconds = [], []
-    t_start = time.perf_counter()
-    try:
-        for step in range(start_step, steps):
-            t0 = time.perf_counter()
-            mb = next(feed)
-            params, opt_state, metrics = step_fn(params, opt_state, mb)
-            loss = float(metrics["loss"])
-            losses.append(loss)
-            dt_step = time.perf_counter() - t0
-            step_seconds.append(dt_step)
-            watchdog.observe(step, dt_step)
-            if manager is not None:
-                manager.maybe_save(step + 1,
-                                   {"params": params, "opt": opt_state},
-                                   extra_meta={"arch": cfg.name})
-            if (step % log_every == 0 or step == steps - 1) and _is_main():
-                print(f"step {step:5d}  loss {loss:.4f}  "
-                      f"lr {float(metrics['lr']):.2e}  "
-                      f"gnorm {float(metrics['grad_norm']):.3f}  "
-                      f"{dt_step*1e3:.0f} ms", flush=True)
-    finally:
-        feed.close()
-    if manager is not None:
-        manager.maybe_save(steps, {"params": params, "opt": opt_state},
-                           extra_meta={"arch": cfg.name}, force=True)
-        manager.wait()
-    wall = time.perf_counter() - t_start
-    done = steps - start_step
+    with trace.run_scope(flow="train", arch=cfg.name) as tracer:
+        pc = PipelineConfig(seq_len=seq_len, global_batch=batch,
+                            vocab_size=cfg.vocab_size,
+                            docs_per_window=max(batch * 16, 512),
+                            prefetch_depth=prefetch_depth, seed=seed)
+        to_model = make_lm_batch_fn(cfg)
+        blocks = iter(InputPipeline(pc))
+        for _ in range(start_step):
+            next(blocks)
+        feed = PrefetchQueue(blocks, depth=pc.prefetch_depth,
+                             stage_fn=lambda blk: to_device(to_model(blk),
+                                                            device))
+        watchdog = StragglerWatchdog(window=16, threshold=3.0)
+        losses, step_seconds = [], []
+        t_start = time.perf_counter()
+        try:
+            with trace.measured(tracer):
+                for step in range(start_step, steps):
+                    t0 = time.perf_counter()
+                    mb = next(feed)
+                    params, opt_state, metrics = step_fn(params, opt_state,
+                                                         mb)
+                    loss = float(metrics["loss"])
+                    losses.append(loss)
+                    dt_step = time.perf_counter() - t0
+                    step_seconds.append(dt_step)
+                    watchdog.observe(step, dt_step)
+                    if manager is not None:
+                        manager.maybe_save(
+                            step + 1, {"params": params, "opt": opt_state},
+                            extra_meta={"arch": cfg.name})
+                    if (step % log_every == 0 or step == steps - 1) \
+                            and _is_main():
+                        print(f"step {step:5d}  loss {loss:.4f}  "
+                              f"lr {float(metrics['lr']):.2e}  "
+                              f"gnorm {float(metrics['grad_norm']):.3f}  "
+                              f"{dt_step*1e3:.0f} ms", flush=True)
+        finally:
+            feed.close()
+        if manager is not None:
+            manager.maybe_save(steps, {"params": params, "opt": opt_state},
+                               extra_meta={"arch": cfg.name}, force=True)
+            manager.wait()
+        wall = time.perf_counter() - t_start
+        done = steps - start_step
+        if tracer is not None:
+            trace.export_run(tracer, {
+                "steps": done,
+                "counters": tracer.metrics.snapshot()["counters"]})
     return {"losses": losses, "step_seconds": step_seconds,
             "steps_done": done,
             "tokens_per_s": done * batch * seq_len / max(wall, 1e-9),

@@ -13,7 +13,11 @@ Folds the trace's complete spans into a per-run breakdown:
   for every component seen in ``compute``/``kernel`` spans;
 - **wait sites** — total blocked time per wait kind (channel put/get/drain,
   admission gate, activity busy-wait);
-- **transfer summary** — h2d/d2h crossing counts + bytes.
+- **transfer summary** — h2d/d2h crossing counts + bytes;
+- **training spans** — in a training trace (``launch/train.py`` under
+  ``REPRO_TRACE=1``), each span of the ``train``, ``model`` and ``data``
+  categories by name: calls, total and self time (these categories also
+  join the category totals).
 
 Instant events (cache copies, arena acquire/release) are counted, not
 timed.  With ``--json`` the same structure is printed as JSON for tooling.
@@ -29,7 +33,10 @@ from typing import Dict, List
 #: the run's coordination overhead)
 _CATEGORY_CLASS = {"compute": "compute", "kernel": "compute",
                    "transfer": "transfer", "wait": "wait",
-                   "phase": "overhead"}
+                   "phase": "overhead", "train": "train", "model": "model",
+                   "data": "data"}
+#: the training path's categories, tabled span by span
+_TRAINING = ("train", "model", "data")
 
 
 def _self_times(spans: List[dict]) -> List[dict]:
@@ -75,6 +82,7 @@ def analyze(payload: dict) -> dict:
         components: Dict[str, dict] = {}
         waits: Dict[str, float] = defaultdict(float)
         transfers: Dict[str, dict] = {}
+        named: Dict[str, dict] = {}
         counts: Dict[str, int] = defaultdict(int)
         wall_us = 0.0
         for ev in spans:
@@ -97,6 +105,12 @@ def analyze(payload: dict) -> dict:
                     c["calls"] += 1
                     c["rows_in"] += int(args.get("rows_in",
                                                  args.get("rows", 0)) or 0)
+            elif cat in _TRAINING:
+                t = named.setdefault(ev["name"],
+                                     {"calls": 0, "us": 0.0, "self_us": 0.0})
+                t["calls"] += 1
+                t["us"] += ev.get("dur", 0.0)
+                t["self_us"] += max(ev["self_us"], 0.0)
             elif cat == "wait":
                 waits[ev["name"]] += ev.get("dur", 0.0)
             elif cat == "transfer":
@@ -117,6 +131,8 @@ def analyze(payload: dict) -> dict:
             "transfers": transfers,
             "instants": dict(counts),
         })
+        if named:
+            out_runs[-1]["spans"] = named
     return {"runs": out_runs}
 
 
@@ -137,7 +153,8 @@ def render(result: dict) -> str:
         cats = run["categories"]
         total = sum(cats.values()) or 1.0
         lines.append("  category        self-time      share")
-        for cls in ("compute", "transfer", "wait", "overhead"):
+        for cls in ("compute", "transfer", "wait", "overhead") + tuple(
+                c for c in _TRAINING if c in cats):
             us = cats.get(cls, 0.0)
             lines.append(f"  {cls:<12}{_fmt_us(us)}   {us / total:7.1%}")
         if run["wall_us"]:
@@ -151,6 +168,13 @@ def render(result: dict) -> str:
                     f"  {name[:32]:<32}{_fmt_us(c['compute_us'])}"
                     f" {_fmt_us(c['kernel_us'])}"
                     f"  {c['calls']:6d}  {c['rows_in']:10d}")
+        if run.get("spans"):
+            lines.append("  span                    calls        total"
+                         "         self")
+            for name, t in sorted(run["spans"].items(),
+                                  key=lambda kv: -kv[1]["us"]):
+                lines.append(f"  {name[:22]:<22}{t['calls']:7d} "
+                             f"{_fmt_us(t['us'])} {_fmt_us(t['self_us'])}")
         if run["waits"]:
             lines.append("  wait site                blocked")
             for name, us in sorted(run["waits"].items(), key=lambda kv: -kv[1]):

@@ -2,26 +2,40 @@
 emitted as Chrome-trace / Perfetto JSON.
 
 Mirrors ``core.shared_cache.cache_stats_scope``: a ``Tracer`` pushed with
-``trace_scope`` (or opened per run by the engines via ``run_scope`` when
-``REPRO_TRACE=1``) is carried through ``contextvars``, so the shared worker
-pool — which runs every task under the submitter's copied context — scopes
-events to the right run even across threads.  Scopes nest; every emit goes
-to ALL active tracers.
+``trace_scope`` (or opened per run by the engines and ``launch/train.py``'s
+``train_loop`` via ``run_scope`` when ``REPRO_TRACE=1``) is carried through
+``contextvars``, so the shared worker pool and the prefetch thread — which
+run their work under the submitter's copied context — scope events to the
+right run even across threads.  Scopes nest; every emit goes to ALL active
+tracers.  Autograd's device thread, which runs the backward and the
+gradient accumulator's hooks, sees no caller context: a train step takes
+its scopes once (``step_scope``) and its hooks emit into them.
 
 Zero-cost guarantee when disabled: every hot call site first checks
 ``ACTIVE.get()`` (one contextvar read); with no tracer in scope and
 ``REPRO_TRACE`` unset, no object is allocated and no lock is taken.
 
-Event model (Chrome trace "traceEvents" array, ts/dur in µs):
+Event model (Chrome trace "traceEvents" array, ts/dur in µs on
+``perf_counter``'s clock, ``tid`` the OS thread id, as the profiler writes
+it on its runtime events):
 
   ph="X" complete spans    — engine phases (cat ``phase``), per-component
                              per-chunk dispatches (cat ``compute``), fused
                              kernel launches (cat ``kernel``), h2d/d2h
-                             transfers (cat ``transfer``), blocking waits
-                             (cat ``wait``: channel put/get/drain, admission,
-                             activity busy-wait)
+                             transfers (cat ``transfer``: ``data.stage``, the
+                             prefetch thread's copy of a batch to the card),
+                             blocking waits (cat ``wait``: channel
+                             put/get/drain, admission, activity busy-wait,
+                             ``prefetch.get``), the train step (cat
+                             ``train``: ``train.step``, ``train.microbatch``,
+                             ``train.grad_accum``, ``train.update``, each
+                             with ``step``, the tracer's ordinal of the
+                             step), the model (cat ``model``:
+                             ``model.forward``, ``model.backward``), the
+                             input pipeline (cat ``data``: ``data.refill``),
+                             clock anchors (cat ``clock``)
   ph="i" instant events    — cache copies (cat ``copy``), arena
-                             acquire/release (cat ``arena``)
+                             acquire/release (cat ``arena``), faults
   ph="C" counter events    — channel occupancy (cat ``channel``)
 
 Each run exported by an engine becomes its own Perfetto *process* (pid =
@@ -111,6 +125,9 @@ class Tracer:
     run never comes near the cap; a resident serving session emitting spans
     for thousands of ticks stays bounded instead of growing for the life of
     the process.  Metric counters are monotonic scalars and never rotate.
+
+    ``step`` is the ordinal of the latest train step begun under this
+    tracer (``step_scope``), -1 before the first.
     """
 
     def __init__(self, name: str = "trace", measuring: bool = True,
@@ -122,6 +139,7 @@ class Tracer:
         self.meta: Dict[str, object] = {}
         self._lock = threading.Lock()
         self.thread_names: Dict[int, str] = {}
+        self.step = -1
         self.max_events = (config.trace_max_events()
                            if max_events is None else max(0, int(max_events)))
         self.dropped_events = 0
@@ -132,7 +150,7 @@ class Tracer:
     def emit(self, ph: str, cat: str, name: str, ts_us: float,
              dur_us: Optional[float] = None,
              args: Optional[dict] = None) -> None:
-        tid = threading.get_ident()
+        tid = threading.get_native_id()
         ev = {"ph": ph, "cat": cat, "name": name,
               "ts": ts_us, "pid": 0, "tid": tid}
         if dur_us is not None:
@@ -241,46 +259,94 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **args) -> None:
+        pass
 
-_NULL_SPAN = _NullSpan()
+
+NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("cat", "name", "args", "t0")
+    """A complete span recorded on ``scopes`` (the tracers in scope where it
+    was opened) when it closes; ``counter`` is bumped on those in their
+    measuring window; a span of a train step (``stepped``) carries each
+    tracer's ``step``."""
+    __slots__ = ("scopes", "cat", "name", "args", "counter", "stepped", "t0")
 
-    def __init__(self, cat: str, name: str, args: dict):
+    def __init__(self, scopes: tuple, cat: str, name: str, args: dict,
+                 counter: Optional[str] = None, stepped: bool = False):
+        self.scopes = scopes
         self.cat = cat
         self.name = name
         self.args = args
+        self.counter = counter
+        self.stepped = stepped
+
+    def set(self, **args) -> None:
+        """Add args known only inside the span (e.g. rows produced)."""
+        self.args.update(args)
 
     def __enter__(self):
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        complete(self.cat, self.name, self.t0,
-                 time.perf_counter() - self.t0, **self.args)
+        dt = time.perf_counter() - self.t0
+        for tr in self.scopes:
+            args = dict(self.args, step=tr.step) if self.stepped \
+                else self.args
+            tr.emit("X", self.cat, self.name, self.t0 * 1e6, dt * 1e6,
+                    args or None)
+            if self.counter and tr.measuring:
+                tr.metrics.inc(self.counter)
         return False
 
 
-def span(cat: str, name: str, **args):
-    """Context manager recording a complete span on every active tracer;
-    a shared no-op singleton when tracing is off."""
-    if not ACTIVE.get():
-        return _NULL_SPAN
-    return _Span(cat, name, args)
+def span(cat: str, name: str, counter: Optional[str] = None, **args):
+    """Context manager recording a complete span on every active tracer
+    (and bumping ``counter`` on those measuring); a shared no-op singleton
+    when tracing is off."""
+    scopes = ACTIVE.get()
+    if not scopes:
+        return NULL_SPAN
+    return _Span(scopes, cat, name, args, counter)
+
+
+class StepScope:
+    """The tracers in scope when a train step began, each counting the step
+    (``Tracer.step``; the ``train_steps`` counter).  Spans opened through it
+    land in those tracers from any thread: autograd's device thread, which
+    runs the backward and its hooks, does not see the caller's context."""
+    __slots__ = ("scopes",)
+
+    def __init__(self, scopes: tuple):
+        self.scopes = scopes
+        for tr in scopes:
+            tr.step += 1
+            if tr.measuring:
+                tr.metrics.inc("train_steps")
+
+    def span(self, cat: str, name: str, counter: Optional[str] = None,
+             **args) -> _Span:
+        return _Span(self.scopes, cat, name, args, counter, stepped=True)
+
+    def count(self, counter: str, n: int = 1) -> None:
+        for tr in self.scopes:
+            if tr.measuring:
+                tr.metrics.inc(counter, n)
+
+
+def step_scope() -> Optional[StepScope]:
+    """A train step's scopes, or None when tracing is off (one contextvar
+    read, nothing allocated)."""
+    scopes = ACTIVE.get()
+    return StepScope(scopes) if scopes else None
 
 
 def complete(cat: str, name: str, t0: float, dt: float, **args) -> None:
     """Record a finished span [t0, t0+dt] (``perf_counter`` seconds)."""
     for tr in ACTIVE.get():
         tr.emit("X", cat, name, t0 * 1e6, dt * 1e6, args or None)
-
-
-def instant(cat: str, name: str, **args) -> None:
-    ts = time.perf_counter() * 1e6
-    for tr in ACTIVE.get():
-        tr.emit("i", cat, name, ts, args=args or None)
 
 
 def counter(cat: str, name: str, **series) -> None:
@@ -338,17 +404,19 @@ def on_kernel(name: str, backend: str, t0: float, t1: float,
             tr.metrics.observe("kernel_dispatch_s", dt)
 
 
-def on_transfer(direction: str, nbytes: int, seconds: float = 0.0) -> None:
-    """One h2d/d2h crossing (from ``shared_cache.record_transfer``).
-    ``seconds`` is the measured copy duration where the call site timed it
-    (0 => drawn as a zero-width slice)."""
+def on_transfer(direction: str, nbytes: int, seconds: float = 0.0,
+                name: Optional[str] = None, **args) -> None:
+    """One h2d/d2h crossing (from ``shared_cache.record_transfer``, and the
+    prefetch thread's ``data.stage``).  ``seconds`` is the measured copy
+    duration where the call site timed it (0 => drawn as a zero-width
+    slice); the span is named ``name`` (default: the direction)."""
     scopes = ACTIVE.get()
     if not scopes:
         return
     t1 = time.perf_counter()
     for tr in scopes:
-        tr.emit("X", "transfer", direction, (t1 - seconds) * 1e6,
-                seconds * 1e6, {"bytes": int(nbytes)})
+        tr.emit("X", "transfer", name or direction, (t1 - seconds) * 1e6,
+                seconds * 1e6, dict(args, bytes=int(nbytes)))
         if tr.measuring:
             m = tr.metrics
             m.inc(f"{direction}_transfers")

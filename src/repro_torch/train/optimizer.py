@@ -122,6 +122,12 @@ def _pieces(*ts: torch.Tensor, by_layer: bool = False) -> Iterator[tuple]:
             yield from _pieces(*rows)
 
 
+def n_pieces(params) -> int:
+    """How many pieces ``adamw_update`` updates ``params`` in."""
+    return sum(1 for P in tree_leaves(params)
+               for _ in _pieces(_local(P), by_layer=True))
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32.  DTensor leaves
     count each element once over the mesh (``sharding.sum_of_squares``)."""

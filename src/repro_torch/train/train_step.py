@@ -11,6 +11,13 @@ means ``opt_state_dtype``), in one buffer a parameter leaf that the
 per-layer gradients land in as the backward produces them.
 ``sharded_train_step`` is the reference's ``jit_train_step``: the same
 step over a ``DeviceMesh``, on DTensors placed by the sharding rules.
+
+Under a tracer (``obs.trace``) a step records the spans ``train.step``,
+``train.microbatch``, ``model.forward``, ``model.backward``,
+``train.grad_accum`` (in each accumulator hook, on whichever thread runs
+the backward) and ``train.update`` (the scaling, ``grad_transform`` and
+AdamW), and counts ``train_steps``, ``grad_accum_adds`` and
+``adamw_pieces``; without one it reads one contextvar a step.
 """
 from __future__ import annotations
 
@@ -21,7 +28,10 @@ from torch.distributed.tensor import DTensor
 
 from ..models.layers import NO_RULES, Rules, dt
 from ..models.transformer import forward_train
-from .optimizer import OptConfig, adamw_update, tree_map
+from ..obs import trace
+from .optimizer import OptConfig, adamw_update, n_pieces, tree_map
+
+_OFF = trace.NULL_SPAN
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], m: int
@@ -35,7 +45,8 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], m: int
              for k, x in batch.items()} for i in range(m)]
 
 
-def _accumulating_leaves(params, gdt: Optional[torch.dtype]
+def _accumulating_leaves(params, gdt: Optional[torch.dtype],
+                         st: Optional[trace.StepScope] = None
                          ) -> Tuple[Any, Any, list]:
     """(leaf tree, accumulator tree, hook handles).
 
@@ -45,15 +56,18 @@ def _accumulating_leaves(params, gdt: Optional[torch.dtype]
     each arriving gradient, cast to ``gdt`` (None: the parameter's dtype),
     into the matching slice of a zeroed accumulator of the parameter's
     shape, then drops it: a gradient lives from its layer's backward to
-    that add, never beside a whole second copy."""
+    that add, never beside a whole second copy.  ``st``: the step's
+    tracers, which each add is a ``train.grad_accum`` span of."""
     handles = []
 
     def bind(leaf: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
         leaf = leaf.detach().requires_grad_(True)
 
         def add(t: torch.Tensor) -> None:
-            acc.add_(t.grad.to(acc.dtype))
-            t.grad = None
+            with _OFF if st is None else st.span(
+                    "train", "train.grad_accum", counter="grad_accum_adds"):
+                acc.add_(t.grad.to(acc.dtype))
+                t.grad = None
         handles.append(leaf.register_post_accumulate_grad_hook(add))
         return leaf
 
@@ -94,32 +108,50 @@ def make_train_step(cfg, ocfg: OptConfig, rules: Rules = NO_RULES,
     # reference's value_and_grad gives them
     gdt = dt(cfg.grad_accum_dtype or cfg.opt_state_dtype) if m > 1 else None
 
+    pieces: List[int] = []        # AdamW's pieces, counted once traced
+
     def train_step(params, opt_state, batch):
-        leaves, grads, handles = _accumulating_leaves(params, gdt)
-        try:
-            sums: Dict[str, torch.Tensor] = {}
-            for mb in (_split_microbatches(batch, passes) if passes > 1
-                       else [batch]):
-                if place_batch is not None:
-                    mb = place_batch(mb)
-                loss, mets = forward_train(leaves, mb, cfg, rules)
-                if isinstance(loss, DTensor):
-                    loss = loss.full_tensor()
-                loss.backward()
-                for k, v in dict(mets, loss=loss).items():
-                    v = v.detach()
-                    sums[k] = sums[k] + v if k in sums else v
-        finally:
-            for h in handles:
-                h.remove()
-        del leaves
-        if passes > 1:
-            grads = tree_map(lambda g: g.div_(passes), grads)
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        stats = adamw_update(grads, params, opt_state, ocfg, cfg)
-        metrics = {k: v / passes for k, v in sums.items()}
-        metrics.update(stats)
+        st = trace.step_scope()
+        with _OFF if st is None else st.span("train", "train.step",
+                                             microbatches=passes):
+            leaves, grads, handles = _accumulating_leaves(params, gdt, st)
+            try:
+                sums: Dict[str, torch.Tensor] = {}
+                for k, mb in enumerate(
+                        _split_microbatches(batch, passes) if passes > 1
+                        else [batch]):
+                    with _OFF if st is None else st.span(
+                            "train", "train.microbatch", k=k):
+                        if place_batch is not None:
+                            mb = place_batch(mb)
+                        with _OFF if st is None else st.span(
+                                "model", "model.forward", k=k):
+                            loss, mets = forward_train(leaves, mb, cfg, rules)
+                        if isinstance(loss, DTensor):
+                            loss = loss.full_tensor()
+                        with _OFF if st is None else st.span(
+                                "model", "model.backward", k=k):
+                            loss.backward()
+                        for name, v in dict(mets, loss=loss).items():
+                            v = v.detach()
+                            sums[name] = sums[name] + v if name in sums else v
+            finally:
+                for h in handles:
+                    h.remove()
+            del leaves
+            if st is not None and not pieces:
+                pieces.append(n_pieces(params))
+            with _OFF if st is None else st.span(
+                    "train", "train.update", pieces=pieces[0]):
+                if passes > 1:
+                    grads = tree_map(lambda g: g.div_(passes), grads)
+                if grad_transform is not None:
+                    grads = grad_transform(grads)
+                stats = adamw_update(grads, params, opt_state, ocfg, cfg)
+            if st is not None:
+                st.count("adamw_pieces", pieces[0])
+            metrics = {k: v / passes for k, v in sums.items()}
+            metrics.update(stats)
         return params, opt_state, metrics
 
     return train_step
