@@ -1556,6 +1556,209 @@ def phase_scan_backward(gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+#  Phase 2, AdamW and the global norm
+# ---------------------------------------------------------------------------
+#: the models whose training cells the benchmark runs, at the depth it runs
+#: them (0: the published depth), and their microbatches
+ADAMW_MODELS = {"stablelm-3b": (0, 2), "falcon-mamba-7b": (32, 4)}
+#: bytes a parameter at fp32 state: the update reads p, g, m, v and writes
+#: p, m, v (28), the norm reads g (4)
+ADAMW_BYTES = 32
+
+
+def _adamw_state(shapes, dtype, gen):
+    """params, gradients (sums over the passes) and moments of ``shapes``
+    on the card, drawn from ``gen``; the step at 0."""
+    from repro_torch.train.optimizer import tree_map
+    dev = gen.device
+
+    def draw(scale, positive=False):
+        def one(t):
+            x = torch.randn(t.shape, device=dev, generator=gen,
+                            dtype=torch.float32).mul_(scale)
+            return (x.abs_() if positive else x).to(dtype)
+        return tree_map(one, shapes)
+    params, grads = draw(0.02), draw(1e-3)
+    opt = {"m": draw(1e-4), "v": draw(1e-8, positive=True),
+           "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    return params, grads, opt
+
+
+def _adamw_gate(arch: str, cfg, div: int, gen) -> float:
+    """The kernels against the plain route at two layers of ``arch``'s
+    leaves (embedding and head whole), fp32 and bf16 state, ``div``
+    passes: p, m and v bitwise at clip 0 over two steps, the norm within
+    rtol 1e-6, a rerun at clip 1 bitwise.  Returns the largest relative
+    gap of the norm."""
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             tree_leaves, tree_map)
+    shapes = param_shapes(cfg.replace(n_layers=2))
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = {}
+        for impl, clip in (("auto", 0.0), ("reference", 0.0), ("auto", 1.0),
+                           ("auto", 1.0)):
+            gen.manual_seed(35)
+            p, g, opt = _adamw_state(shapes, dtype, gen)
+            ocfg = OptConfig(grad_clip=clip, warmup_steps=1)
+            norms = []
+            for k in range(2):
+                gk = tree_map(lambda t: t.clone(), g)
+                norms.append(adamw_update(gk, p, opt, ocfg, cfg, grad_div=div,
+                                          impl=impl)["grad_norm"])
+            leaves = tree_leaves(p) + tree_leaves(opt["m"]) \
+                + tree_leaves(opt["v"])
+            runs.setdefault((impl, clip), []).append((leaves, norms))
+            del p, g, opt
+        (kl, kn), = runs[("auto", 0.0)]
+        (rl, rn), = runs[("reference", 0.0)]
+        if not all(same(a, b) for a, b in zip(kl, rl)):
+            raise AssertionError(f"adamw {arch} {dtype}: the kernels' p, m, "
+                                 f"v differ from the plain route's")
+        gap = max(abs(float(a) - float(b)) / float(b) for a, b in zip(kn, rn))
+        if gap > 1e-6:
+            raise AssertionError(f"adamw {arch} {dtype}: norm gap {gap}")
+        (al, an), (bl, bn) = runs[("auto", 1.0)]
+        if not (all(same(a, b) for a, b in zip(al, bl))
+                and all(same(a, b) for a, b in zip(an, bn))):
+            raise AssertionError(f"adamw {arch} {dtype}: reruns differ")
+        worst = max(worst, gap)
+        log(f"  adamw[{arch} gate, {str(dtype).split('.')[-1]} state, "
+            f"{div} passes]: p, m, v bitwise the plain route's at clip 0, "
+            f"norm within {gap:.2e}, reruns bitwise at clip 1")
+        del runs, kl, rl, al, bl
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _adamw_leaf_gate(arch: str, cfg, div: int, gen) -> float:
+    """The kernels against the plain route on each of ``arch``'s leaves
+    at the cells' depth and fp32 state, one leaf at a time and whole, as
+    the main path hands them over (a stacked leaf is one flat buffer;
+    falcon-mamba-7b's ``mamba.in_proj`` at 32 layers holds 2**31
+    elements): the kernels on copies of p, m and v, the plain route on
+    the originals, one gradient, ``div`` passes, clip 0.  p, m and v
+    bitwise, the leaf's norm within rtol 1e-6.  Returns the largest
+    relative gap of a norm."""
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             tree_leaves)
+    ocfg = OptConfig(grad_clip=0.0, warmup_steps=1)
+    leaves = tree_leaves(param_shapes(cfg))
+    worst, most = 0.0, 0
+    for i, shape in enumerate(leaves):
+        gen.manual_seed(35 + i)
+        p, g, opt = _adamw_state({"x": shape}, torch.float32, gen)
+        kp, km, kv = (t["x"].clone() for t in (p, opt["m"], opt["v"]))
+        # the kernels leave g as it is; the plain route divides it in place
+        kn = adamw_update(g, {"x": kp}, {"m": {"x": km}, "v": {"x": kv},
+                                         "step": opt["step"].clone()},
+                          ocfg, cfg, grad_div=div)["grad_norm"]
+        rn = adamw_update(g, p, opt, ocfg, cfg, grad_div=div,
+                          impl="reference")["grad_norm"]
+        if not (same(kp, p["x"]) and same(km, opt["m"]["x"])
+                and same(kv, opt["v"]["x"])):
+            raise AssertionError(f"adamw {arch} leaf {i} "
+                                 f"{tuple(shape.shape)}: the kernels' p, m, "
+                                 f"v differ from the plain route's")
+        gap = abs(float(kn) - float(rn)) / float(rn)
+        if gap > 1e-6:
+            raise AssertionError(f"adamw {arch} leaf {i} "
+                                 f"{tuple(shape.shape)}: norm gap {gap}")
+        worst, most = max(worst, gap), max(most, shape.numel())
+        del p, g, opt, kp, km, kv
+        torch.cuda.empty_cache()
+    log(f"  adamw[{arch} gate, {len(leaves)} leaves whole at "
+        f"{cfg.n_layers} layers, fp32 state, {div} passes]: p, m, v bitwise "
+        f"the plain route's at clip 0, each leaf's norm within {worst:.2e} "
+        f"(largest leaf {most} elements)")
+    return worst
+
+
+def _adamw_times(arch: str, cfg, div: int, gen) -> dict:
+    """One step's norm and update over ``arch``'s whole leaves (fp32
+    state, ``div`` passes): launches, ms (CUDA events), device ms (5 steps
+    back to back) and each kernel's, the bound, the plain route's ms and
+    ``torch._fused_adamw_``'s over the same lists (decoupled decay, no
+    norm, no division: a yardstick the port never calls)."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.adamw import adamw_cuda, square_sums_cuda
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             tree_leaves)
+    ocfg = OptConfig(grad_clip=1.0)
+    gen.manual_seed(35)
+    p, g, opt = _adamw_state(param_shapes(cfg), torch.float32, gen)
+    n = sum(t.numel() for t in tree_leaves(p))
+    P, G, M, V = (tree_leaves(t) for t in (p, g, opt["m"], opt["v"]))
+    one = torch.ones((), device=gen.device)
+    reset_launches()
+    adamw_update(g, p, opt, ocfg, cfg, grad_div=div)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    launches = launches["adamw_update"] + launches["adamw_square_sum"]
+    step = lambda: adamw_update(g, p, opt, ocfg, cfg, grad_div=div)
+
+    def update():
+        for pp, gg, mm, vv in zip(P, G, M, V):
+            adamw_cuda(pp, gg, mm, vv, lr=one, scale=one, bc1=one, bc2=one,
+                       b1=0.9, b2=0.95, eps=1e-8, wd=0.1, grad_div=div)
+    out = {"params": n, "launches": launches, "ms": time_ms(step, 5, 1),
+           "device_ms": back_to_back_ms(step, 5),
+           "update_device_ms": back_to_back_ms(update, 5),
+           "norm_device_ms": back_to_back_ms(
+               lambda: square_sums_cuda(G, div, 1.0), 5)}
+    out["bound_ms"], out["bound_by"] = bound_ms(ADAMW_BYTES * n, 0)
+    # the plain route divides the gradients in place at every call; its
+    # time does not depend on their values
+    out["plain_ms"] = time_ms(lambda: adamw_update(
+        g, p, opt, ocfg, cfg, grad_div=div, impl="reference"), 3, 1)
+    steps = [torch.ones((), device=gen.device) for _ in P]
+    out["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+        P, G, M, V, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False), 5, 1)
+    out["library_device_ms"] = back_to_back_ms(lambda: torch._fused_adamw_(
+        P, G, M, V, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False), 5)
+    log(f"  adamw[{arch}, {len(P)} leaves, {n} parameters, fp32 state, "
+        f"{div} passes]: {launches} launches a step, {out['ms']:.3f} ms, "
+        f"device {out['device_ms']:.3f} (update {out['update_device_ms']:.3f}"
+        f", norm {out['norm_device_ms']:.3f}), bound "
+        f"{out['bound_ms']:.3f} ({ADAMW_BYTES} B a parameter at "
+        f"{PEAK_BYTES_S / 1e12} TB/s), plain {out['plain_ms']:.3f}, "
+        f"torch._fused_adamw_ {out['library_ms']:.3f} (device "
+        f"{out['library_device_ms']:.3f})")
+    del p, g, opt, P, G, M, V
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_adamw(gen) -> dict:
+    """The fused AdamW update and global norm (``csrc/adamw.cu``) at the
+    benchmark's training cells' leaves: stablelm-3b whole (the kernels
+    line's row) and falcon-mamba-7b at 32 layers (``falcon_*`` fields).
+    First the bitwise gates, at two layers of each in fp32 and bf16 state
+    (``_adamw_gate``) and on every leaf whole at the cells' depth
+    (``_adamw_leaf_gate``), then one step's times over every leaf
+    (``_adamw_times``)."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, (depth, div) in ADAMW_MODELS.items():
+        cfg = get_config(arch)
+        if depth:
+            cfg = cfg.replace(n_layers=depth)
+        gap = max(_adamw_gate(arch, cfg, div, gen),
+                  _adamw_leaf_gate(arch, cfg, div, gen))
+        m = _adamw_times(arch, cfg, div, gen)
+        m["norm_rel_gap"] = gap
+        out[arch] = m
+    row = dict(out["stablelm-3b"], max_abs_err=0.0)
+    row.update({f"falcon_{k}": v for k, v in out["falcon-mamba-7b"].items()})
+    return row
+
+
+# ---------------------------------------------------------------------------
 #  Phase 3: ETL main path
 # ---------------------------------------------------------------------------
 def check_oracle(got: dict, expect: dict, rtol: float, label: str) -> None:
@@ -3096,6 +3299,7 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.train import to_device, train_loop
     from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import tree_leaves
     spec = TRAIN[arch]
     full = get_config(arch)
     cfg = full.replace(n_layers=spec["depth"] or full.n_layers,
@@ -3103,6 +3307,8 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
     kernel = "mamba_scan" if cfg.family == "ssm" else "flash_attention"
     backward = f"{kernel}_backward"
     n, n_active = tf.param_count(cfg), cfg.active_param_count()
+    n_leaves = sum(1 for t in tree_leaves(tf.param_shapes(cfg))
+                   if t.numel())
     tokens = spec["batch"] * TRAIN_SEQ
     calls = forward_calls(cfg)
     per_step = calls * cfg.grad_accum * 2
@@ -3157,6 +3363,15 @@ def train_model(arch: str, dev: torch.device, profile: bool = False):
                                  f"{per_step // 2} a step ({calls} calls x "
                                  f"{cfg.grad_accum} microbatches) x "
                                  f"{spec['steps']}")
+        updates = after["adamw_update"] - before["adamw_update"]
+        sums = after["adamw_square_sum"] - before["adamw_square_sum"]
+        if (updates, sums) != (n_leaves * spec["steps"],
+                               (n_leaves + 1) * spec["steps"]):
+            raise AssertionError(f"{arch}#{attempt}: AdamW launched "
+                                 f"{updates} updates and {sums} norm "
+                                 f"kernels, expected {n_leaves} and "
+                                 f"{n_leaves + 1} a step ({n_leaves} "
+                                 f"leaves, one sum) x {spec['steps']}")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{arch}#{attempt}: losses {losses}")
         ln_v, loss0 = float(np.log(cfg.vocab_size)), initial_loss(cfg)
@@ -4026,6 +4241,7 @@ def main() -> int:
     measured["flash_attention_backward"] = phase_flash_backward(gen)
     measured["mamba_scan_backward"] = phase_scan_backward(gen)
     torch.cuda.empty_cache()
+    measured["adamw"] = phase_adamw(gen)
 
     # ---- phase 3: the ETL main path
     log("ETL main path (SSB SF1, backend torch, fused, 8 splits):")
@@ -4291,6 +4507,22 @@ def main() -> int:
                                  "(local sweeps, cross-chunk pass, walks, "
                                  "sums) from torch.profiler")
         kernels.append(row)
+    kernels.append({
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/csrc/adamw.cu",
+        "replaces": "none: the reference's jnp AdamW "
+                    "(src/repro/train/optimizer.py), which XLA fuses",
+        **measured["adamw"],
+        "note": "one training step's norm and update over stablelm-3b's "
+                "leaves (falcon_*: falcon-mamba-7b's at 32 layers), fp32 "
+                "state, the cells' pass counts; launches a step; ms CUDA "
+                "events, device_ms 5 steps back to back; bound_ms 32 B a "
+                "parameter; plain_ms the piecewise route with its division; "
+                "library_ms torch._fused_adamw_ (no norm, no division), a "
+                "yardstick the port never calls; max_abs_err 0: p, m and v "
+                "bitwise the plain route's at two layers (fp32 and bf16 "
+                "state) and on every leaf whole at the cells' depth (the "
+                "gates); norm_rel_gap the largest gap of a norm there"})
     log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

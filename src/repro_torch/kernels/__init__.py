@@ -18,6 +18,10 @@
 #   mamba_scan      — the Mamba-1 selective scan for the SSM models' prefill
 #                     (csrc/mamba_scan.cu) and its gradient for training
 #                     (csrc/mamba_scan_bwd.cu).
+#   adamw           — no TPU kernel: the optimizer's update and the
+#                     gradients' global norm, each one pass over the
+#                     state (csrc/adamw.cu); the plain route is
+#                     train/optimizer.py's.
 #
 # Each package has ops.py (the wrapper: the kernel on a CUDA tensor, the
 # plain version on a CPU tensor, a launch counter) and ref.py (the plain

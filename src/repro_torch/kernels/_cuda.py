@@ -73,6 +73,14 @@ _SIGNATURES = {
     #: delta, x, B, C, A, carries, dy, dhT, d delta, dx, dB, dC, dA, dh0,
     #: workspace (ops.backward_workspace_floats), Bt, T, d, N, bf16, stream
     "repro_mamba_scan_backward": (_P,) * 15 + (_I,) * 5 + (_P,),
+    #: p, p bf16, g, g bf16, m, m bf16, v, v bf16, n, lr, scale, bc1, bc2,
+    #: b1, 1 - b1, b2, 1 - b2, eps, weight decay, pass count, blocks, stream
+    "repro_adamw_update": (_P, _I) * 4 + (_I64,) + (_P,) * 4 + (_F,) * 6
+                          + (_I, _I, _P),
+    #: g, g bf16, n, pass count, blocks, fp64 partials, stream
+    "repro_adamw_square_partials": (_P, _I, _I64, _I, _I, _P, _P),
+    #: fp64 partials, their count, clip, clip on, out (3 fp32), stream
+    "repro_adamw_square_finish": (_P, _I64, _F, _I, _P, _P),
 }
 
 
@@ -97,7 +105,8 @@ build_seconds = 0.0
 LAUNCHES: Dict[str, int] = {"hash_probe": 0, "radix_groupby": 0,
                             "segment_sum": 0, "flash_attention": 0,
                             "flash_attention_backward": 0, "mamba_scan": 0,
-                            "mamba_scan_backward": 0}
+                            "mamba_scan_backward": 0, "adamw_update": 0,
+                            "adamw_square_sum": 0}
 #: the grouped sums' launches by kernel and route, as
 #: ``"radix_groupby/wide"``: counted with the launch (``count_route``)
 ROUTES: Dict[str, int] = {}

@@ -9,6 +9,15 @@ counterpart of the reference's donated params and opt state (its jitted
 step reuses their buffers), so no second copy of the state exists.  Call
 it only once no autograd graph holds the parameters, that is after the
 last microbatch's backward.
+
+Two routes (``impl``).  On CUDA tensors the update and its global norm
+are the fused kernels of ``csrc/adamw.cu`` (``kernels.adamw``): one pass a
+leaf that reads p, g, m and v once and writes p, m and v once, and one
+that reads g once for the norm, bitwise the plain route's update at the
+same clip scale.  On CPU tensors, and with ``impl="reference"``
+anywhere, the plain route: the same math in PyTorch ops a piece at a time
+(``_pieces``), and ``global_norm``, the oracle the kernels are held to.
+Leaves on both devices raise.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ from typing import Any, Dict, Iterator, List
 import torch
 from torch.distributed.tensor import DTensor
 
+from ..kernels.adamw import adamw_cuda, square_sums_cuda
 from ..models.layers import dt
 
 
@@ -123,9 +133,25 @@ def _pieces(*ts: torch.Tensor, by_layer: bool = False) -> Iterator[tuple]:
 
 
 def n_pieces(params) -> int:
-    """How many pieces ``adamw_update`` updates ``params`` in."""
-    return sum(1 for P in tree_leaves(params)
+    """How many pieces the plain route of ``adamw_update`` updates
+    ``params`` in: those of the leaves on the CPU."""
+    return sum(1 for P in tree_leaves(params) if not _local(P).is_cuda
                for _ in _pieces(_local(P), by_layer=True))
+
+
+def n_fused(params) -> int:
+    """How many elements the fused kernel of ``adamw_update`` updates in
+    ``params``: those of the leaves on the card (a rank's shards)."""
+    return sum(_local(P).numel() for P in tree_leaves(params)
+               if _local(P).is_cuda)
+
+
+def _fused(leaves, impl: str) -> bool:
+    """Whether ``leaves`` take the kernels: with ``impl`` "auto" where any
+    lies on the card (the kernels raise on one that does not)."""
+    if impl not in ("auto", "reference"):
+        raise ValueError(f"unknown adamw impl {impl!r}")
+    return impl == "auto" and any(_local(t).is_cuda for t in leaves)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -151,25 +177,48 @@ def _local(t):
 
 
 @torch.no_grad()
-def adamw_update(grads, params, opt_state, ocfg: OptConfig, model_cfg
+def adamw_update(grads, params, opt_state, ocfg: OptConfig, model_cfg,
+                 grad_div: int = 1, impl: str = "auto"
                  ) -> Dict[str, torch.Tensor]:
     """One AdamW step, IN PLACE on ``params`` and ``opt_state`` (see the
-    module docstring).  Returns the stats ``{"lr", "grad_norm"}`` as 0-dim
-    tensors.  DTensor leaves (a sharded step) update each rank's shards in
-    place, clipped by the global gradient norm."""
+    module docstring), on ``grads / grad_div`` (the gradients summed over
+    ``grad_div`` passes; the plain route divides them in place first, the
+    kernels as they read them).  Returns the stats ``{"lr",
+    "grad_norm"}`` as 0-dim tensors.  DTensor leaves (a sharded step)
+    update each rank's shards in place, clipped by the global gradient
+    norm.  ``impl``: "auto" (the kernels on the card, the plain route on
+    the CPU; leaves on both devices raise) or "reference" (the plain
+    route on any device)."""
     step = _local(opt_state["step"])
     lr = lr_at(step, ocfg)
-    gnorm = global_norm(grads)
-    scale = (torch.clamp(ocfg.grad_clip / (gnorm + 1e-9), max=1.0)
-             if ocfg.grad_clip > 0 else torch.ones((), device=gnorm.device))
+    leaves = list(zip(tree_leaves(params), tree_leaves(grads),
+                      tree_leaves(opt_state["m"]),
+                      tree_leaves(opt_state["v"])))
+    fused = _fused([t for leaf in leaves for t in leaf], impl)
+    sharded = any(isinstance(G, DTensor) for _, G, _, _ in leaves)
+    if grad_div != 1 and (sharded or not fused):
+        for _, G, _, _ in leaves:
+            G.div_(grad_div)
+        grad_div = 1
+    if fused and not sharded:
+        norms = square_sums_cuda([G for _, G, _, _ in leaves], grad_div,
+                                 ocfg.grad_clip)
+        gnorm, scale = norms[1], norms[2]
+    else:
+        gnorm = global_norm(grads)
+        scale = (torch.clamp(ocfg.grad_clip / (gnorm + 1e-9), max=1.0)
+                 if ocfg.grad_clip > 0
+                 else torch.ones((), device=gnorm.device))
     b1, b2 = ocfg.b1, ocfg.b2
     bc1 = 1 - torch.pow(b1, step.float() + 1)
     bc2 = 1 - torch.pow(b2, step.float() + 1)
-    leaves = zip(tree_leaves(params), tree_leaves(grads),
-                 tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"]))
     for P, G, M, V in leaves:
         wd = ocfg.weight_decay if P.dim() >= 2 else 0.0   # none on norms
         P, G, M, V = (_local(t) for t in (P, G, M, V))
+        if fused:
+            adamw_cuda(P, G, M, V, lr=lr, scale=scale, bc1=bc1, bc2=bc2,
+                       b1=b1, b2=b2, eps=ocfg.eps, wd=wd, grad_div=grad_div)
+            continue
         for p, g, m, v in _pieces(P, G, M, V, by_layer=True):
             g32 = g.float() * scale
             m32 = b1 * m.float() + (1 - b1) * g32

@@ -16,8 +16,9 @@ Under a tracer (``obs.trace``) a step records the spans ``train.step``,
 ``train.microbatch``, ``model.forward``, ``model.backward``,
 ``train.grad_accum`` (in each accumulator hook, on whichever thread runs
 the backward) and ``train.update`` (the scaling, ``grad_transform`` and
-AdamW), and counts ``train_steps``, ``grad_accum_adds`` and
-``adamw_pieces``; without one it reads one contextvar a step.
+AdamW), and counts ``train_steps``, ``grad_accum_adds``, ``adamw_pieces``
+(the plain route's pieces) and ``adamw_fused_elems`` (the elements the
+fused kernel updates); without one it reads one contextvar a step.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from torch.distributed.tensor import DTensor
 from ..models.layers import NO_RULES, Rules, dt
 from ..models.transformer import forward_train
 from ..obs import trace
-from .optimizer import OptConfig, adamw_update, n_pieces, tree_map
+from .optimizer import (OptConfig, adamw_update, n_fused, n_pieces,
+                        tree_map)
 
 _OFF = trace.NULL_SPAN
 
@@ -108,7 +110,8 @@ def make_train_step(cfg, ocfg: OptConfig, rules: Rules = NO_RULES,
     # reference's value_and_grad gives them
     gdt = dt(cfg.grad_accum_dtype or cfg.opt_state_dtype) if m > 1 else None
 
-    pieces: List[int] = []        # AdamW's pieces, counted once traced
+    # AdamW's plain pieces and fused elements, counted once traced
+    pieces: List[int] = []
 
     def train_step(params, opt_state, batch):
         st = trace.step_scope()
@@ -140,16 +143,22 @@ def make_train_step(cfg, ocfg: OptConfig, rules: Rules = NO_RULES,
                     h.remove()
             del leaves
             if st is not None and not pieces:
-                pieces.append(n_pieces(params))
+                pieces.extend((n_pieces(params), n_fused(params)))
             with _OFF if st is None else st.span(
                     "train", "train.update", pieces=pieces[0]):
-                if passes > 1:
-                    grads = tree_map(lambda g: g.div_(passes), grads)
+                # AdamW divides by the pass count as it reads the sums,
+                # unless a transform has to see the mean
+                div = passes
                 if grad_transform is not None:
-                    grads = grad_transform(grads)
-                stats = adamw_update(grads, params, opt_state, ocfg, cfg)
+                    if passes > 1:
+                        grads = tree_map(lambda g: g.div_(passes), grads)
+                    grads, div = grad_transform(grads), 1
+                stats = adamw_update(grads, params, opt_state, ocfg, cfg,
+                                     grad_div=div)
             if st is not None:
                 st.count("adamw_pieces", pieces[0])
+                if pieces[1]:
+                    st.count("adamw_fused_elems", pieces[1])
             metrics = {k: v / passes for k, v in sums.items()}
             metrics.update(stats)
         return params, opt_state, metrics

@@ -217,7 +217,8 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
     assert launch_counts() == {"hash_probe": 0, "radix_groupby": 0,
                                "segment_sum": 0, "flash_attention": 0,
                                "flash_attention_backward": 0,
-                               "mamba_scan": 0, "mamba_scan_backward": 0}
+                               "mamba_scan": 0, "mamba_scan_backward": 0,
+                               "adamw_update": 0, "adamw_square_sum": 0}
     with pytest.raises(ValueError, match="CUDA tensor"):
         hj.hash_probe(*args, impl="cuda")
     with pytest.raises(ValueError, match="CUDA tensor"):
