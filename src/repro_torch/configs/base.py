@@ -1,9 +1,12 @@
 """Model/shape configuration system (host-only; a copy of the reference's).
 
-One difference from the reference: ``attn_impl`` / ``ssm_impl`` take
+Two differences from the reference: ``attn_impl`` / ``ssm_impl`` take
 ``auto | cuda | reference`` and default to ``auto``, which runs the
 hand-written CUDA kernel on a CUDA tensor and its plain torch version on a
-CPU tensor.  (The reference defaults to its plain jnp route.)
+CPU tensor (the reference defaults to its plain jnp route); and three
+fields the reference lacks, whose defaults are its behaviour:
+``mixer_norms``, ``use_rope`` and ``tie_embeddings`` (the published
+Jamba's, which the benchmark's ``jamba2-3b`` configuration turns on).
 
 Every assigned architecture gets a `configs/<id>.py` exporting:
   CONFIG        — full-size ModelConfig (exact paper/public numbers)
@@ -74,6 +77,11 @@ class ModelConfig:
                                      # scan: h stays in registers across k
                                      # fused steps (h HBM round-trips / k)
     rope_theta: float = 1_000_000.0
+    use_rope: bool = True            # False: attention layers carry no
+                                     # positional encoding (jamba)
+    mixer_norms: bool = False        # jamba's weighted RMSNorms on the
+                                     # mixer's dt, B and C (eps norm_eps)
+    tie_embeddings: bool = False     # the head is tok_embed^T (no head_w)
     norm_eps: float = 1e-5
     logit_softcap: float = 0.0       # grok-style tanh softcap
     # --- numerics / memory policy ---
@@ -143,7 +151,9 @@ class ModelConfig:
             total = d * d + 2 * d          # in_proj_w, in_proj_b, in_ln
         else:
             total = V * d                  # tok_embed
-        total += d + d * V                 # final_ln, head_w
+        total += d                         # final_ln
+        if not self.tie_embeddings:
+            total += d * V                 # head_w
         for i in range(self.n_layers):
             total += d                     # ln1
             if self.layer_kind(i) == "attn":
@@ -155,6 +165,8 @@ class ModelConfig:
                 total += (d * 2 * di + self.d_conv * di + di   # in/conv_w/b
                           + di * (dtr + 2 * N) + dtr * di + di  # x/dt_proj/bias
                           + di * N + di + di * d)               # A_log, D, out
+                if self.mixer_norms:
+                    total += dtr + 2 * N                        # dt/b/c_norm
             if self.has_cross_attn(i):
                 total += d + d * h * hd + 2 * d * k * hd + h * hd * d + 1
             if f > 0:

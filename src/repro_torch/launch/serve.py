@@ -92,9 +92,9 @@ class BatchedServer:
         if params is None:
             params = init_params(cfg, seed=0, device=self.device,
                                  place=place)
-        elif params["head_w"].device != self.device:
-            raise ValueError(f"params are on {params['head_w'].device}, the "
-                             f"server on {self.device}")
+        elif params["final_ln"].device != self.device:
+            raise ValueError(f"params are on {params['final_ln'].device}, "
+                             f"the server on {self.device}")
         self.params = params
         self.stats: Dict[str, float] = {"prefills": 0, "decode_steps": 0,
                                         "prefill_s": 0.0, "decode_s": 0.0}

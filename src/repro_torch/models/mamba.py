@@ -3,7 +3,10 @@
 Recurrence (per channel c, state n):
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t
     y_t = C_t . h_t + D * x_t
-with input-dependent dt (softplus), B, C from x_proj.
+with input-dependent dt (softplus), B, C from x_proj.  With
+``cfg.mixer_norms`` (Jamba's mixer) x_proj's three outputs each pass a
+weighted RMSNorm (``dt_norm``, ``b_norm``, ``c_norm``; eps ``norm_eps``)
+before ``dt_proj`` and the scan.
 
 Prefill and training (T > 1) run the selective-scan kernel
 (``kernels/mamba_scan``) unless ``ssm_impl == "reference"``, which takes
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Partial, Shard
 
 from ..kernels.mamba_scan import mamba_scan, mamba_scan_chunked
-from .layers import Rules, dt, on_shards
+from .layers import Rules, dt, on_shards, rms_norm
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -92,6 +95,10 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
                     (chan, rules.placements(xp, "d_inner", None)), part)
     dbc = rules.cons(dbc, "batch", None, None)
     dt_in, B_in, C_in = torch.split(dbc, [dtr, N, N], dim=-1)
+    if cfg.mixer_norms:
+        dt_in = rms_norm(dt_in, p["dt_norm"], cfg.norm_eps)
+        B_in = rms_norm(B_in, p["b_norm"], cfg.norm_eps)
+        C_in = rms_norm(C_in, p["c_norm"], cfg.norm_eps)
     delta = F.softplus(dt_in @ p["dt_proj"].to(cdt) + p["dt_bias"].to(cdt))
     A = -torch.exp(p["A_log"].float())                # [di, N]
     B32 = B_in.float()

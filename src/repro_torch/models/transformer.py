@@ -2,8 +2,11 @@
 (attention + MLP), moe (attention + the MoE FFN of ``moe.py``), ssm
 (Mamba-1), vlm (a gated cross-attention over vision embeddings every
 ``cross_attn_period``-th layer), audio (an encoder over frame embeddings)
-and hybrid (jamba's attention/Mamba/MoE interleave; on the CPU only, see
-``check_supported``).
+and hybrid (jamba's attention/Mamba/MoE interleave; with MoE layers on the
+CPU only, see ``check_supported``).  Three fields the reference lacks give
+the published Jamba's layers (``configs/base.py``): ``use_rope=False``,
+``mixer_norms`` (RMSNorms on the mixer's dt, B and C) and
+``tie_embeddings`` (the head is ``tok_embed``'s transpose, no ``head_w``).
 
 Layers are grouped into structural periods (dense, moe, ssm and audio: 1;
 jamba: 8 with attention at offset 4 and MoE every 2nd layer; llama-vision:
@@ -40,9 +43,12 @@ longer than W and not a multiple of it).
 
 The backbone returns ``(h, new_cache, aux)``: ``aux`` sums the MoE
 layers' load-balancing losses, which ``forward_train`` adds to the loss and
-serving drops.  In training each period runs under
+serving drops.  In training each layer runs under
 ``torch.utils.checkpoint`` when ``remat_policy == "full"``, and no cache is
-built: the decode path's in-place cache writes never meet autograd.
+built: the decode path's in-place cache writes never meet autograd.  Under
+a train step's tracers (``st``) each layer's forward, recompute and
+backward is a ``model.layer`` span and its forward counts ``attn_layers``
+or ``mamba_layers``.
 """
 from __future__ import annotations
 
@@ -62,7 +68,7 @@ from .moe import moe_block
 
 Params = Dict[str, Any]
 
-#: why the port runs the hybrid family on the CPU only
+#: why the port runs a hybrid with MoE layers on the CPU only
 _HYBRID_ON_CUDA = (
     "its card path needs model sharding over 4 cards: one full-width "
     "period of jamba-1.5-large holds 4 MoE layers of 16 experts, 4 x 16 x "
@@ -72,12 +78,14 @@ _HYBRID_ON_CUDA = (
 
 
 def check_supported(cfg, device) -> None:
-    """Raise for a family the port does not run on ``device``: the hybrid
-    family on a CUDA device.  Called before anything is allocated there."""
-    if cfg.family == "hybrid" and torch.device(device).type == "cuda":
+    """Raise for a configuration the port does not run on ``device``: a
+    hybrid with MoE layers on a CUDA device (one without experts, as
+    Jamba2-3B, runs there).  Called before anything is allocated there."""
+    if (cfg.family == "hybrid" and cfg.n_experts > 0
+            and torch.device(device).type == "cuda"):
         raise NotImplementedError(
-            f"{cfg.name}: the hybrid family runs on the CPU only; "
-            f"{_HYBRID_ON_CUDA}")
+            f"{cfg.name}: the hybrid family with MoE layers runs on the CPU "
+            f"only; {_HYBRID_ON_CUDA}")
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +139,10 @@ def _layer_defs(cfg, pos: int) -> List[Tuple[str, tuple, tuple, float]]:
                  ("mamba.A_log", (di, N), ("d_inner", None), 1.0),
                  ("mamba.D", (di,), ("d_inner",), 1.0),
                  ("mamba.out_proj", (di, d), ("d_inner", "embed"), out_scale)]
+        if cfg.mixer_norms:
+            defs += [("mamba.dt_norm", (dtr,), (None,), 1.0),
+                     ("mamba.b_norm", (N,), (None,), 1.0),
+                     ("mamba.c_norm", (N,), (None,), 1.0)]
     if cfg.has_cross_attn(pos):
         defs += [("ln_x", (d,), (None,), 1.0),
                  ("xattn.wq", (d, h * hd), ("embed", "heads"), 0.02),
@@ -169,8 +181,9 @@ def _top_defs(cfg) -> List[Tuple[str, tuple, tuple, float]]:
                  ("in_ln", (d,), (None,), 1.0)]
     else:
         defs.append(("tok_embed", (V, d), ("vocab", "embed"), 0.02))
-    defs += [("final_ln", (d,), (None,), 1.0),
-             ("head_w", (d, V), ("embed", "vocab"), 0.02)]
+    defs.append(("final_ln", (d,), (None,), 1.0))
+    if not cfg.tie_embeddings:
+        defs.append(("head_w", (d, V), ("embed", "vocab"), 0.02))
     return defs
 
 
@@ -222,7 +235,8 @@ def init_params(cfg, seed: int = 0, device="cuda", place=None) -> Params:
             a = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
                                        device=device))
             return a.expand(shape).to(pdt).contiguous()
-        if path.endswith((".D", "ln1", "ln2", "ln_x", "final_ln", "in_ln")):
+        if path.endswith((".D", "ln1", "ln2", "ln_x", "final_ln", "in_ln",
+                          "_norm")):
             return torch.ones(shape, dtype=pdt, device=device)
         if path.endswith("dt_bias"):
             return torch.full(shape, -4.6, dtype=pdt, device=device)
@@ -345,7 +359,7 @@ def _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, vision, cache,
         out, (k_, v_) = attn_block(
             hin, hin, sub["attn"], cfg, rules, q_pos, kv_pos,
             causal=cfg.causal, window=cfg.sliding_window,
-            kv_cache=kv_cache, cache_pos=cache_pos)
+            use_rope=cfg.use_rope, kv_cache=kv_cache, cache_pos=cache_pos)
         if mode == "prefill" and cfg.sliding_window:
             S, W = k_.shape[1], cache_len(cfg, k_.shape[1])
             k_, v_ = k_[:, -W:], v_[:, -W:]
@@ -412,17 +426,21 @@ def _cross_with_cache(hx, xk, xv, p, cfg):
 #  Backbone (a loop over periods)
 # ---------------------------------------------------------------------------
 def backbone(params, h, cfg, rules: Rules, mode: str, q_pos, kv_pos,
-             vision=None, cache=None, cache_pos: Optional[int] = None):
+             vision=None, cache=None, cache_pos: Optional[int] = None,
+             st=None):
     """h: [B, S, d] -> (h, new_cache, aux).
 
     mode 'train' builds no cache and returns the MoE layers' summed aux loss
-    (fp32); with ``remat_policy == "full"`` each period runs under
-    ``torch.utils.checkpoint``, the counterpart of the reference's
-    ``jax.checkpoint`` of its scan body: the backward keeps each period's
-    input and runs the period again, kernels included, before its backward.
-    A block leaf may be a stacked tensor or a list of per-layer tensors
-    (``train_step`` passes per-layer leaves that accumulate their own
-    gradients).
+    (fp32); with ``remat_policy == "full"`` each layer runs under
+    ``torch.utils.checkpoint``: the backward keeps each layer's input and
+    runs the layer again, kernels included, before its backward.  The
+    reference checkpoints its scan body, a whole period; a layer at a time
+    holds one layer's activations, not a period's (Jamba2-3B's period is
+    14 layers), and gives the same values.  A block leaf may be a stacked
+    tensor or a list of per-layer tensors (``train_step`` passes per-layer
+    leaves that accumulate their own gradients).  ``st``: the train step's
+    tracers (``obs.trace.StepScope``), under which each layer's forward,
+    recompute and backward is a ``model.layer`` span (``_train_layers``).
     mode 'prefill' stacks each layer's new cache along a leading layer dim.
     mode 'decode' updates ``cache`` IN PLACE, layer slice by layer slice: the
     counterpart of the reference's donated cache buffer, so a multi-GB cache
@@ -432,21 +450,8 @@ def backbone(params, h, cfg, rules: Rules, mode: str, q_pos, kv_pos,
     P_ = period(cfg)
     blocks = params["blocks"]
     if mode == "train":
-        # one unbind a stacked leaf: its backward stacks the layers'
-        # gradients once, where indexing would add a full-size zero
-        # gradient a layer
-        blocks = _unbind(blocks)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for i in range(n_periods(cfg)):
-            bp = {key: _index(blocks[key], i) for key in blocks}
-            args = (h, bp, cfg, rules, q_pos, kv_pos, vision)
-            if cfg.remat_policy == "full":
-                h, a = checkpoint(_train_period, *args, use_reentrant=False,
-                                  preserve_rng_state=False)
-            else:
-                h, a = _train_period(*args)
-            aux = aux + a
-        return h, None, aux
+        return _train_layers(blocks, h, cfg, rules, q_pos, kv_pos, vision,
+                             st)
     stacked: Dict[str, Dict[str, torch.Tensor]] = {}
     for i in range(n_periods(cfg)):
         for pos in range(P_):
@@ -478,15 +483,87 @@ def backbone(params, h, cfg, rules: Rules, mode: str, q_pos, kv_pos,
     return h, stacked or None, None
 
 
-def _train_period(h, bp, cfg, rules, q_pos, kv_pos, vision):
-    """One period of layers in mode 'train' -> (h, the period's aux)."""
+def _train_layers(blocks, h, cfg, rules, q_pos, kv_pos, vision, st):
+    """Mode 'train': every layer in order, each under its own checkpoint
+    when ``remat_policy == "full"`` -> (h, None, the summed aux)."""
+    # one unbind a stacked leaf: its backward stacks the layers' gradients
+    # once, where indexing would add a full-size zero gradient a layer
+    blocks = _unbind(blocks)
+    P_ = period(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for pos in range(period(cfg)):
-        h, _, a = _apply_layer(h, bp[f"pos{pos}"], cfg, rules, pos, q_pos,
-                               kv_pos, vision, None, None, "train")
-        if a is not None:
-            aux = aux + a
-    return h, aux
+    spans = None if st is None else _BackwardSpans(
+        st, [cfg.layer_kind(i) for i in range(cfg.n_layers)])
+    for i in range(n_periods(cfg)):
+        for pos in range(P_):
+            layer = i * P_ + pos
+            fn = _train_layer
+            if spans is not None:
+                spans.at(h, layer)
+                fn = _spanned(st, cfg.layer_kind(pos), layer)
+            args = (h, _index(blocks[f"pos{pos}"], i), cfg, rules, pos,
+                    q_pos, kv_pos, vision)
+            if cfg.remat_policy == "full":
+                h, a = checkpoint(fn, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                h, a = fn(*args)
+            if a is not None:
+                aux = aux + a
+    if spans is not None:
+        spans.at(h, cfg.n_layers)
+    return h, None, aux
+
+
+def _train_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, vision):
+    """One layer in mode 'train' -> (h, its aux or None)."""
+    h, _, a = _apply_layer(h, sub, cfg, rules, pos, q_pos, kv_pos, vision,
+                           None, None, "train")
+    return h, a
+
+
+def _spanned(st, kind: str, layer: int):
+    """``_train_layer`` inside a ``model.layer`` span: its first call is
+    the layer's forward, which counts ``<kind>_layers``; a second, the
+    checkpoint's recompute in the backward."""
+    ran = False
+
+    def run(*args):
+        nonlocal ran
+        phase = "recompute" if ran else "forward"
+        ran = True
+        with st.span("model", "model.layer",
+                     counter=f"{kind}_layers" if phase == "forward" else None,
+                     kind=kind, layer=layer, phase=phase):
+            return _train_layer(*args)
+    return run
+
+
+class _BackwardSpans:
+    """The layers' ``model.layer`` backward spans, bounded by gradient
+    hooks on autograd's thread (as ``train.grad_accum`` is): layer k's
+    opens when the gradient of its output arrives and closes when its
+    input's is complete.  The tensor between layers k - 1 and k carries
+    one hook that does both, so that one thread's spans stay nested."""
+
+    def __init__(self, st, kinds: List[str]):
+        self.st, self.kinds = st, kinds
+        self.open: List[Any] = [None] * len(kinds)
+
+    def at(self, x: torch.Tensor, k: int) -> None:
+        """Hook ``x``, the input of layer ``k`` (the last layer's output
+        when ``k`` is the layer count)."""
+        if not x.requires_grad:
+            return
+
+        def hook(grad):
+            if k < len(self.kinds) and self.open[k] is not None:
+                self.open[k].__exit__(None, None, None)
+                self.open[k] = None
+            if k > 0:
+                self.open[k - 1] = self.st.span(
+                    "model", "model.layer", kind=self.kinds[k - 1],
+                    layer=k - 1, phase="backward").__enter__()
+        x.register_hook(hook)
 
 
 def _unbind(tree):
@@ -548,8 +625,9 @@ class EmbedRows(torch.autograd.Function):
 def _logits(params, h, cfg, rules: Rules):
     cdt = dt(cfg.compute_dtype)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return rules.cons(h.to(cdt) @ params["head_w"].to(cdt), "batch", None,
-                      "vocab")
+    head = (params["tok_embed"].to(cdt).t() if cfg.tie_embeddings
+            else params["head_w"].to(cdt))
+    return rules.cons(h.to(cdt) @ head, "batch", None, "vocab")
 
 
 def _token_nll(lg: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
@@ -558,7 +636,7 @@ def _token_nll(lg: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     return logz - lg.gather(-1, tgt[..., None].long())[..., 0]
 
 
-def forward_train(params, batch, cfg, rules: Rules = NO_RULES):
+def forward_train(params, batch, cfg, rules: Rules = NO_RULES, st=None):
     """-> (scalar loss, {"ce", "aux"}), differentiable in ``params``.
 
     ``batch`` holds ``tokens`` [B, S] (audio: ``frames`` [B, T, d] and
@@ -566,13 +644,14 @@ def forward_train(params, batch, cfg, rules: Rules = NO_RULES):
     is logsumexp minus the gold logit, averaged over the next tokens
     (audio: over ``labels`` at every position); the loss is ``ce + 0.01 *
     aux``, ``aux`` the MoE layers' summed load-balancing loss (0 without
-    MoE layers)."""
-    check_supported(cfg, params["head_w"].device)
+    MoE layers).  ``st``: the train step's tracers, passed to
+    ``backbone``."""
+    check_supported(cfg, params["final_ln"].device)
     with implicit_replication():
         x = _embed(params, batch, cfg, rules)
         pos = torch.arange(x.shape[1], device=x.device)
         h, _, aux = backbone(params, x, cfg, rules, "train", pos, pos,
-                             vision=batch.get("vision"))
+                             vision=batch.get("vision"), st=st)
         logits = _logits(params, h, cfg, rules).float()
         if cfg.family == "audio":
             tgt, lg = batch["labels"], logits
@@ -590,7 +669,7 @@ def forward_prefill(params, batch, cfg, rules: Rules = NO_RULES):
 
     ``batch`` holds ``tokens`` [B, S] (audio: ``frames`` [B, T, d]) and, for
     a vlm, optionally ``vision`` [B, n_vision_tokens, d]."""
-    check_supported(cfg, params["head_w"].device)
+    check_supported(cfg, params["final_ln"].device)
     with implicit_replication():
         x = _embed(params, batch, cfg, rules)
         S = x.shape[1]
@@ -609,7 +688,7 @@ def decode_step(params, cache, batch, cfg, rules: Rules = NO_RULES):
     The cache is donated: its tensors are updated in place and the returned
     cache shares them, with ``pos_idx`` one further.  A vlm's cross-attention
     reads the vision K/V its prefill cached."""
-    check_supported(cfg, params["head_w"].device)
+    check_supported(cfg, params["final_ln"].device)
     with implicit_replication():
         x = _embed(params, batch, cfg, rules)            # [B, 1, d]
         pos_idx = int(cache["pos_idx"])

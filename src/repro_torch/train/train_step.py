@@ -14,11 +14,14 @@ step over a ``DeviceMesh``, on DTensors placed by the sharding rules.
 
 Under a tracer (``obs.trace``) a step records the spans ``train.step``,
 ``train.microbatch``, ``model.forward``, ``model.backward``,
-``train.grad_accum`` (in each accumulator hook, on whichever thread runs
-the backward) and ``train.update`` (the scaling, ``grad_transform`` and
-AdamW), and counts ``train_steps``, ``grad_accum_adds``, ``adamw_pieces``
-(the plain route's pieces) and ``adamw_fused_elems`` (the elements the
-fused kernel updates); without one it reads one contextvar a step.
+``model.layer`` (each layer's forward, recompute and backward, from
+``models/transformer.py``), ``train.grad_accum`` (in each accumulator
+hook, on whichever thread runs the backward) and ``train.update`` (the
+scaling, ``grad_transform`` and AdamW), and counts ``train_steps``,
+``attn_layers`` and ``mamba_layers`` (the layers of each kind run forward,
+over the step's microbatches), ``grad_accum_adds``, ``adamw_pieces`` (the
+plain route's pieces) and ``adamw_fused_elems`` (the elements the fused
+kernel updates); without one it reads one contextvar a step.
 """
 from __future__ import annotations
 
@@ -129,7 +132,8 @@ def make_train_step(cfg, ocfg: OptConfig, rules: Rules = NO_RULES,
                             mb = place_batch(mb)
                         with _OFF if st is None else st.span(
                                 "model", "model.forward", k=k):
-                            loss, mets = forward_train(leaves, mb, cfg, rules)
+                            loss, mets = forward_train(leaves, mb, cfg, rules,
+                                                       st=st)
                         if isinstance(loss, DTensor):
                             loss = loss.full_tensor()
                         with _OFF if st is None else st.span(

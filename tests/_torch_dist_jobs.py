@@ -119,9 +119,9 @@ def run_train(mesh, cfg, params_np, batches, counts=None):
     mets, launches, bwd_launches, rows = [], [], [], []
     fwd = train_step_mod.forward_train
 
-    def spy(params, batch, cfg, rules):
+    def spy(params, batch, cfg, rules, **kw):
         rows.append(batch["tokens"].to_local().shape[0])
-        return fwd(params, batch, cfg, rules)
+        return fwd(params, batch, cfg, rules, **kw)
     for toks in batches:
         before = dict(counts or {})
         train_step_mod.forward_train = spy

@@ -350,9 +350,9 @@ PORT_PROG = textwrap.dedent("""
     import repro_torch.train.train_step as ts
     rows, fwd = [], ts.forward_train
 
-    def spy(params, batch, cfg, rules):
+    def spy(params, batch, cfg, rules, **kw):
         rows.append(list(batch["tokens"].to_local().shape))
-        return fwd(params, batch, cfg, rules)
+        return fwd(params, batch, cfg, rules, **kw)
     ts.forward_train = spy
     cut = get_config("qwen2.5-32b").replace(n_layers=1)
     shape = get_shapes("qwen2.5-32b")["train_4k"]

@@ -113,9 +113,10 @@ def test_train_step_span_tree(arch):
         adds = by["train.grad_accum"]
         assert len(adds) == 2 * _leaves_a_pass(p)
         assert all(any(_within(a, bw) for bw in bwd) for a in adds)
+    kind = "mamba_layers" if arch == "falcon-mamba-7b" else "attn_layers"
     assert tr.metrics.snapshot()["counters"] == {
         "train_steps": 2, "grad_accum_adds": 4 * _leaves_a_pass(p),
-        "adamw_pieces": 2 * n_pieces(p)}
+        "adamw_pieces": 2 * n_pieces(p), kind: 2 * 2 * cfg.n_layers}
 
 
 def test_untraced_step_reads_one_contextvar_and_matches(reads, tracers_made):
